@@ -7,8 +7,9 @@
 ``halted.all()`` read per chunk.
 
 Event selection is the lexicographic argmin over (time asc, kind desc,
-stamp asc) of ``ops/select_events.py``: the hand-written CUDA kernel on the
-card, its plain version on the CPU.  Every entry point runs on ``cuda``
+stamp asc) of ``ops/select_events.py::select_queue_events``, which reads the
+queue and timers in place: the hand-written CUDA kernel on the card, its
+plain version on the CPU.  Every entry point runs on ``cuda``
 unless the caller passes ``device="cpu"``.
 
 The planes of later slices raise ``NotImplementedError`` here (see
@@ -44,7 +45,7 @@ from ..core.types import (
     tree_fields,
     unpack_payload,
 )
-from ..ops.select_events import select_events
+from ..ops.select_events import select_queue_events
 from ..utils import hashing as H
 from ..utils.quantile import TABLE_BITS
 from ..utils.xops import arange, const, needed, onehot, put, scatter_set, take, wset, zeros
@@ -152,15 +153,12 @@ def init_state(p: SimParams, seed: int, weights=None, byz_equivocate=None,
 
 def _select_event(p: SimParams, st: SimState):
     """Lexicographic (time, kind desc, stamp) argmin over messages + timers:
-    the ``[B, cm + n]`` rows the JAX package builds, through select_events."""
-    cm, b, n = p.queue_cap, st.clock.shape[0], p.n_nodes
-    dev = st.clock.device
-    msg_time = torch.where(st.queue.valid, st.queue.time, NEVER)
-    all_time = torch.cat([msg_time, st.timer_time], dim=1)
-    all_kind = torch.cat([st.queue.kind, const((b, n), KIND_TIMER, I32, dev)], dim=1)
-    all_stamp = torch.cat([st.queue.stamp, st.timer_stamp], dim=1)
-    idx, t_min = select_events(all_time, all_kind, all_stamp)
-    return idx, t_min, idx >= cm
+    the ``[B, cm + n]`` rows the JAX package builds, read in place from the
+    queue and timers by select_queue_events."""
+    q = st.queue
+    idx, t_min = select_queue_events(q.valid, q.time, q.kind, q.stamp,
+                                     st.timer_time, st.timer_stamp, KIND_TIMER)
+    return idx, t_min, idx >= p.queue_cap
 
 
 def _equivocated_row(p: SimParams, s_a: Store, notif: Payload, row):
