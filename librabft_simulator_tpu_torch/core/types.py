@@ -73,8 +73,9 @@ class SimParams:
     ``dense_writes``, ``gate_handlers``) pick between bit-identical forms in
     the JAX package and have no effect in the port.  The planes of later
     slices (``telemetry``, ``watchdog``, ``scenario``, ``adversary``,
-    ``shuffle_receivers``, ``macro_k > 1``, ``mp_authors``,
-    ``wrap="device"``) raise in the engine until they land."""
+    ``macro_k > 1``, ``mp_authors``, ``wrap="device"``) raise in the engines
+    until they land; ``shuffle_receivers`` is a serial-engine semantic that
+    the lane engine refuses, as in the JAX package."""
 
     n_nodes: int = 3
     window: int = 16          # W: record-store round window

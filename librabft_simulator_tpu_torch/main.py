@@ -4,9 +4,10 @@
     python -m librabft_simulator_tpu_torch.main --device cpu --nodes 3 --max_clock 1000 --json
     python -m librabft_simulator_tpu_torch.main --instances 10000 --nodes 4 --delay uniform --json
 
-It runs on the GPU unless ``--device cpu`` is given.  ``--byzantine_f > 0``
-and ``--output_data_files`` raise until the Byzantine-schedule and analysis
-slices of the port land.
+It runs on the GPU unless ``--device cpu`` is given.  ``--byzantine_f f``
+marks the first ``f`` authors faulty (``--byzantine_kind``) and adds the
+safe fraction to the summary; ``--output_data_files DIR`` turns on the
+round-switch trace and writes instance 0's data files there.
 """
 
 from __future__ import annotations
@@ -21,10 +22,8 @@ import numpy as np
 import torch
 
 from .core.types import SimParams
+from .sim import byzantine as B
 from .sim import simulator as S
-
-#: The Byzantine schedules of the JAX package's registry (sim/byzantine.py).
-BYZANTINE_KINDS = ("honest", "equivocate", "silent", "forge_qc")
 
 
 def build_parser():
@@ -62,7 +61,7 @@ def build_parser():
     ap.add_argument("--byzantine_f", type=int, default=0,
                     help="Number of faulty authors (0..n/3)")
     ap.add_argument("--byzantine_kind", default="equivocate",
-                    choices=list(BYZANTINE_KINDS))
+                    choices=list(B.SCHEDULES))
     ap.add_argument("--json", action="store_true", help="JSON summary to stdout")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="torch device the fleet runs on")
@@ -71,14 +70,6 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.byzantine_f > 0:
-        raise NotImplementedError(
-            "--byzantine_f needs sim/byzantine.py, which lands with the "
-            "Byzantine-schedule slice of the port")
-    if args.output_data_files:
-        raise NotImplementedError(
-            "--output_data_files needs analysis/data_writer.py, which lands "
-            "with the analysis slice of the port")
     seed = args.seed if args.seed is not None else random.getrandbits(32)
     print(f"seed: {seed}", file=sys.stderr)
     p = SimParams(
@@ -97,11 +88,15 @@ def main(argv=None):
         # In-flight messages scale ~n^2 (each update may broadcast to n-1
         # peers); 16n keeps 16-64-node fleets live.
         queue_cap=max(32, 16 * args.nodes),
-        trace_cap=0,
+        trace_cap=4096 if args.output_data_files else 0,
     )
     seeds = np.uint32(seed) + np.arange(args.instances, dtype=np.uint32)
     t0 = time.perf_counter()
-    st = S.init_batch(p, seeds, device=args.device)
+    if args.byzantine_f > 0:
+        st = B.init_fault_batch(p, seeds, args.byzantine_f, args.byzantine_kind,
+                                device=args.device)
+    else:
+        st = S.init_batch(p, seeds, device=args.device)
     st = S.run_to_completion(p, st, batched=True)
     if st.clock.is_cuda:
         torch.cuda.synchronize(st.clock.device)
@@ -120,6 +115,14 @@ def main(argv=None):
         "msgs_sent": int(st.n_msgs_sent.sum()),
         "msgs_dropped": int(st.n_msgs_dropped.sum()),
     }
+    if args.byzantine_f > 0:
+        honest = np.arange(p.n_nodes) >= args.byzantine_f
+        summary["safe_fraction"] = float(B.check_safety(st, honest).mean())
+    if args.output_data_files:
+        from .analysis.data_writer import DataWriter
+
+        DataWriter(p, args.output_data_files).write(st, instance=0)
+        print(f"wrote data files to {args.output_data_files}", file=sys.stderr)
     if args.json:
         print(json.dumps(summary))
     else:

@@ -1,1 +1,1 @@
-"""The serial batched engine."""
+"""The engines: serial (parity) and lane-compacted windows, and Byzantine sweeps."""

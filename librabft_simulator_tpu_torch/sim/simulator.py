@@ -43,6 +43,7 @@ from ..core.types import (
     payload_width,
     sat_add,
     tree_fields,
+    tree_map,
     unpack_payload,
 )
 from ..ops.select_events import select_queue_events
@@ -65,7 +66,6 @@ def check_slice(p: SimParams):
         ("watchdog", p.watchdog, "the telemetry-plane slice"),
         ("scenario", p.scenario, "the scenario/adversary-plane slice"),
         ("adversary", p.adversary, "the scenario/adversary-plane slice"),
-        ("shuffle_receivers", p.shuffle_receivers, "the Byzantine-schedule slice"),
         ("macro_k > 1", (p.macro_k or 1) > 1, "the sharded-runtime slice"),
         ("mp_authors", p.mp_authors, "the multi-GPU slice"),
         ('wrap="device"', p.wrap == "device", "the sharded-runtime slice"),
@@ -237,6 +237,81 @@ def _node_write(tree, gathered, new, mask):
     return tree.replace(**kw) if kw else tree
 
 
+def handle_events(p: SimParams, dur_table, s_a: Store, pm_a, nx_a, cx_a, weights,
+                  a, local_clock, pay_in: Payload, is_notify, is_request,
+                  is_response, do_update, forge_a, silent_a, rows_a, eps_a,
+                  any_equivocate: bool = True, any_forge: bool = True):
+    """Handle one event per row: the notification or response handler, the
+    node update, and the ``[R, 4, F]`` bank of outgoing payloads
+    (notification, equivocating notification, request, response).  Shared
+    by the serial engine (a row per instance) and the lane engine (a row per
+    lane).  ``rows_a``/``eps_a`` are the handled node's epoch-handoff ring
+    (``None`` when the handoff is off); the updated ring is returned.
+
+    Returns (store, pm, node, ctx, actions, should_sync, bank, rows_a, eps_a)."""
+    # ---- Handlers, masked by kind.  A row handles at most one kind, so
+    # running the notification handler on a payload gated to notify events,
+    # then the response handler on one gated to response events, gives the
+    # JAX package's per-kind select of the two handlers' results.
+    # (``needed`` skips work masked off for every row; on the card it
+    # always runs.)
+    s_in, should_sync, nx_in, cx_in = s_a, is_notify, nx_a, cx_a
+    if needed(is_notify) or needed(is_response):
+        tag_ok = data_sync.incoming_qc_tag_ok(p, pay_in)
+        if needed(is_notify):
+            s_in, should_sync = data_sync.handle_notification(
+                p, s_a, weights, _gate_payload(pay_in, is_notify), tag_ok)
+        if needed(is_response):
+            s_in, nx_in, cx_in = data_sync.handle_response(
+                p, s_in, nx_a, cx_a, weights, _gate_payload(pay_in, is_response),
+                tag_ok)
+
+    if needed(do_update):
+        s_u, pm_u, nx_u, cx_u, actions = node_ops.update_node(
+            p, s_in, pm_a, nx_in, cx_in, weights, a, local_clock, dur_table)
+        s_f = store_ops._sel(do_update, s_u, s_in)
+        pm_f = store_ops._sel(do_update, pm_u, pm_a)
+        nx_f = store_ops._sel(do_update, nx_u, nx_in)
+        cx_f = store_ops._sel(do_update, cx_u, cx_in)
+    else:
+        s_f, pm_f, nx_f, cx_f = s_in, pm_a, nx_in, cx_in
+        actions = node_ops.inert_actions(p, do_update)
+
+    # ---- Outgoing payloads.
+    notif = data_sync.create_notification(p, s_f, a)
+    if any_forge:
+        notif = store_ops._sel(forge_a, _forged_qc_payload(p, s_f, a, notif), notif)
+    notif_row = pack_payload(notif)
+    notif_b_row = _equivocated_row(p, s_f, notif, notif_row) if any_equivocate \
+        else notif_row
+    # create_request (data_sync.rs:66-72): an empty payload carrying our
+    # epoch and where our chain stands, written straight into its columns.
+    off = payload_offsets(p)
+    request_row = torch.zeros_like(notif_row)
+    request_row[:, off["epoch"][0]] = s_f.epoch_id
+    request_row[:, off["req_hqc_round"][0]] = s_f.hqc_round
+    request_row[:, off["req_hcr"][0]] = s_f.hcr
+    if needed(is_request & ~silent_a):
+        resp_row = pack_payload(data_sync.handle_request(p, s_f, a, pay_in, notif=notif))
+    else:
+        resp_row = notif_row  # never selected: no row answers a request
+    if p.epoch_handoff:
+        # Cross-epoch handoff: update_node captured the old-epoch pack at the
+        # switch; serve any requester whose epoch matches a held pack.
+        E = p.handoff_epochs
+        if actions.ho_pack is not None:   # None: no row switched epochs
+            switched = do_update & actions.ho_switched
+            wslot = torch.remainder(actions.ho_epoch.clamp(min=0), E)
+            rows_a = wset(rows_a, wslot, actions.ho_pack, when=switched)
+            eps_a = wset(eps_a, wslot, actions.ho_epoch, when=switched)
+        rslot = torch.remainder(pay_in.epoch.clamp(min=0), E)
+        serve_ho = (is_request & (take(eps_a, rslot) == pay_in.epoch)
+                    & (pay_in.epoch < s_f.epoch_id))
+        resp_row = torch.where(serve_ho.unsqueeze(-1), take(rows_a, rslot), resp_row)
+    bank = torch.stack([notif_row, notif_b_row, request_row, resp_row], dim=1)
+    return s_f, pm_f, nx_f, cx_f, actions, should_sync, bank, rows_a, eps_a
+
+
 def step(p: SimParams, delay_table, dur_table, st: SimState,
          any_equivocate: bool = True, any_forge: bool = True) -> SimState:
     """Process one event of every instance (loop_until body,
@@ -270,82 +345,27 @@ def step(p: SimParams, delay_table, dur_table, st: SimState,
     silent_a = take(st.byz_silent, a)
     forge_a = take(st.byz_forge_qc, a)
 
-    # ---- Handlers, masked by kind.  An instance handles at most one kind,
-    # so running the notification handler on a payload gated to notify
-    # events, then the response handler on one gated to response events,
-    # gives the JAX package's per-kind select of the two handlers' results.
     not_timer = live & ~is_timer
     is_notify = not_timer & (kind == KIND_NOTIFY)
     is_request = not_timer & (kind == KIND_REQUEST)
     is_response = not_timer & (kind == KIND_RESPONSE)
     do_update = live & (is_timer | is_notify | is_response)
-    weights = st.weights
-    # (``needed`` skips work masked off for every instance; on the card
-    # it always runs.)
-    s_in, should_sync, nx_in, cx_in = s_a, is_notify, nx_a, cx_a
-    if needed(is_notify) or needed(is_response):
-        tag_ok = data_sync.incoming_qc_tag_ok(p, pay_in)
-        if needed(is_notify):
-            s_in, should_sync = data_sync.handle_notification(
-                p, s_a, weights, _gate_payload(pay_in, is_notify), tag_ok)
-        if needed(is_response):
-            s_in, nx_in, cx_in = data_sync.handle_response(
-                p, s_in, nx_a, cx_a, weights, _gate_payload(pay_in, is_response),
-                tag_ok)
-
-    if needed(do_update):
-        s_u, pm_u, nx_u, cx_u, actions = node_ops.update_node(
-            p, s_in, pm_a, nx_in, cx_in, weights, a, local_clock, dur_table)
-        s_f = store_ops._sel(do_update, s_u, s_in)
-        pm_f = store_ops._sel(do_update, pm_u, pm_a)
-        nx_f = store_ops._sel(do_update, nx_u, nx_in)
-        cx_f = store_ops._sel(do_update, cx_u, cx_in)
-    else:
-        s_f, pm_f, nx_f, cx_f = s_in, pm_a, nx_in, cx_in
-        actions = node_ops.inert_actions(p, do_update)
-
-    # ---- Outgoing messages.
-    notif = data_sync.create_notification(p, s_f, a)
-    if any_forge:
-        notif = store_ops._sel(forge_a, _forged_qc_payload(p, s_f, a, notif), notif)
-    notif_row = pack_payload(notif)
-    notif_b_row = _equivocated_row(p, s_f, notif, notif_row) if any_equivocate \
-        else notif_row
-    # create_request (data_sync.rs:66-72): an empty payload carrying our
-    # epoch and where our chain stands, written straight into its columns.
-    off = payload_offsets(p)
-    request_row = torch.zeros_like(notif_row)
-    request_row[:, off["epoch"][0]] = s_f.epoch_id
-    request_row[:, off["req_hqc_round"][0]] = s_f.hqc_round
-    request_row[:, off["req_hcr"][0]] = s_f.hcr
-    want_response = is_request & ~silent_a
-    if needed(want_response):
-        resp_row = pack_payload(data_sync.handle_request(p, s_f, a, pay_in, notif=notif))
-    else:
-        resp_row = notif_row  # never selected: no instance answers a request
     if p.epoch_handoff:
-        # Cross-epoch handoff: update_node captured the old-epoch pack at the
-        # switch; serve any requester whose epoch matches a held pack.
-        E = p.handoff_epochs
-        rows_a = take(st.ho_pay, a)       # [B, E, F]
-        eps_a = take(st.ho_epoch, a)      # [B, E]
-        if actions.ho_pack is not None:   # None: no instance switched epochs
-            switched = do_update & actions.ho_switched
-            wslot = torch.remainder(actions.ho_epoch.clamp(min=0), E)
-            rows_a = wset(rows_a, wslot, actions.ho_pack, when=switched)
-            eps_a = wset(eps_a, wslot, actions.ho_epoch, when=switched)
+        rows_a, eps_a = take(st.ho_pay, a), take(st.ho_epoch, a)  # [B, E, F], [B, E]
+    else:
+        rows_a = eps_a = None
+    (s_f, pm_f, nx_f, cx_f, actions, should_sync, payload_bank, rows_a,
+     eps_a) = handle_events(
+        p, dur_table, s_a, pm_a, nx_a, cx_a, st.weights, a, local_clock, pay_in,
+        is_notify, is_request, is_response, do_update, forge_a, silent_a,
+        rows_a, eps_a, any_equivocate, any_forge)
+    if p.epoch_handoff:
         m_a = onehot(st.ho_epoch, a)
         ho_pay = put(m_a, st.ho_pay, rows_a)
         ho_epoch = put(m_a, st.ho_epoch, eps_a)
-        rslot = torch.remainder(pay_in.epoch.clamp(min=0), E)
-        serve_ho = (is_request & (take(eps_a, rslot) == pay_in.epoch)
-                    & (pay_in.epoch < s_f.epoch_id))
-        resp_row = torch.where(serve_ho.unsqueeze(-1), take(rows_a, rslot), resp_row)
     else:
         ho_pay, ho_epoch = st.ho_pay, st.ho_epoch
-    # [B, 4, F] packed bank: one row per candidate payload kind.
-    payload_bank = torch.stack([notif_row, notif_b_row, request_row, resp_row], dim=1)
-
+    want_response = is_request & ~silent_a
     silent = silent_a
     others = nodes != a.unsqueeze(-1)
     # Candidate order fixes the stamp sequence: [sync-request or response]
@@ -363,10 +383,24 @@ def step(p: SimParams, delay_table, dur_table, st: SimState,
     notif_sel = (eqv_a.unsqueeze(-1) & upper).to(I32)
     query_mask = others & (actions.should_query_all & speak).unsqueeze(-1)
 
+    if p.shuffle_receivers:
+        # Seeded per-event receiver permutation (the reference shuffles
+        # delivery order per broadcast, simulator.rs:343): receivers keep
+        # their payload and mask but take the stamp, hence the delay draw, of
+        # their permuted position.  A stable argsort of unsigned keys, ties
+        # by index, as the oracle and the C++ engine replay it.
+        base = H.rng_u32(st.seed, st.stamp_ctr)
+        keys = H.as_u32(H.mix32(base.unsqueeze(-1), nodes + 1))
+        order = torch.argsort(keys, dim=1, stable=True)
+        send_mask = send_mask.gather(1, order)
+        query_mask = query_mask.gather(1, order)
+        notif_sel = notif_sel.expand(b, n).gather(1, order)
+        node_row = order.to(I32)
+    else:
+        node_row = nodes.to(I32).expand(b, n)
     want = torch.cat([cand0_want.unsqueeze(-1), send_mask, query_mask], dim=1)
     kinds = torch.cat([cand0_kind.unsqueeze(-1), const((b, n), KIND_NOTIFY, I32, dev),
                        const((b, n), KIND_REQUEST, I32, dev)], dim=1)
-    node_row = nodes.to(I32).expand(b, n)
     recvs = torch.cat([cand0_recv.unsqueeze(-1), node_row, node_row], dim=1)
     pay_sel = torch.cat([cand0_pay.unsqueeze(-1), notif_sel,
                          const((b, n), 2, I32, dev)], dim=1)
@@ -463,6 +497,15 @@ def step(p: SimParams, delay_table, dur_table, st: SimState,
         trace_time=trace_time,
         trace_count=trace_count,
     )
+
+
+def select_instances(st, idx):
+    """The instances ``idx`` of a batched SimState or PSimState, as copies
+    (e.g. to compare a few instances of a card run with a CPU run; a lane
+    state's inbox leaves lose their routing pad, so the copy is for reading
+    only)."""
+    idx = torch.as_tensor(np.asarray(idx), device=st.clock.device)
+    return tree_map(lambda x: x.index_select(0, idx), st)
 
 
 def tables(p: SimParams, device):

@@ -151,3 +151,61 @@ def test_cuda_kernel_wide_rows_staged_above_48kb(cuda_device):
     """A tile above the default 48 KB of shared memory (the kernel opts in to
     the card's limit) gives the same answer."""
     _wide_rows_match(cuda_device, 400, 320)
+
+
+def _inbox(rng, rows, ic):
+    """Lane inbox rows as a drain iteration gathers them: ~half the slots
+    valid, stale kinds and times in the rest, message kinds 0-2; rows 0-7
+    tie a message with the timer, rows 8-15 are empty with NEVER timers."""
+    valid = rng.random((rows, ic)) < 0.5
+    time = rng.integers(0, 50, (rows, ic)).astype(np.int32)
+    kind = rng.integers(0, 3, (rows, ic)).astype(np.int32)
+    stamp = rng.integers(0, 1 << 20, (rows, ic)).astype(np.int32)
+    timer = rng.integers(0, 60, rows).astype(np.int32)
+    valid[:8, 5], time[:8, 5], timer[:8] = True, 0, 0
+    valid[8:16], timer[8:16] = False, NEVER
+    return valid, time, kind, stamp, timer
+
+
+@pytest.mark.cuda
+def test_cuda_lane_select_matches_earliest(cuda_device):
+    """The lane engine's select (``earliest``: select_queue_events on
+    [B*A, 256] inbox rows with one timer column; a 106 KB staged tile) equals
+    ``_earliest``'s plain port."""
+    from librabft_simulator_tpu_torch.sim import parallel_sim as P
+
+    args = [torch.as_tensor(x, device=cuda_device)
+            for x in _inbox(np.random.default_rng(3), 16000, 256)]
+    before = sel.select_queue_events.launches
+    got = P.earliest(*args)
+    assert sel.select_queue_events.launches == before + 1
+    want = P._earliest(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_cuda_lane_step_matches_cpu(cuda_device):
+    """A few lane windows on the card equal the same windows on the CPU, leaf
+    for leaf (n=16, 2-chain, 256-slot inboxes: config #5's shape, 8 instances)."""
+    from librabft_simulator_tpu_torch import convert
+    from librabft_simulator_tpu_torch.core.types import SimParams
+    from librabft_simulator_tpu_torch.sim import parallel_sim as P
+    from librabft_simulator_tpu_torch.sim import simulator as S
+
+    p = SimParams(n_nodes=16, commit_chain=2, inbox_cap=256, max_clock=1000)
+    states = {}
+    for dev in ("cpu", cuda_device):
+        st = P.init_batch(p, np.arange(8), device=dev)
+        delay_table, dur_table = S.tables(p, st.clock.device)
+        before = sel.select_queue_events.launches
+        for _ in range(12):
+            st = P.step(p, delay_table, dur_table, P.d_min_of(p), st)
+        if dev != "cpu":
+            assert sel.select_queue_events.launches == before + 12 * P.drain_of(p)
+        states[str(dev)] = convert.to_reference(st)
+    want = states.pop("cpu")
+    got = states.popitem()[1]
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert int(want["n_events"].sum()) > 0

@@ -125,7 +125,7 @@ def test_against_oracle_edge_shapes(case):
 
 def test_later_slices_raise():
     for kw in (dict(telemetry=True), dict(adversary=True), dict(macro_k=4),
-               dict(shuffle_receivers=True), dict(wrap="device")):
+               dict(wrap="device")):
         with pytest.raises(NotImplementedError):
             S.init_batch(SimParams(**kw), [0], device="cpu")
     st = S.init_batch(SimParams(), [0], device="cpu")
@@ -157,7 +157,7 @@ def test_skipping_masked_work_is_exact(monkeypatch):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
-def test_cli_flags_match_jax():
+def test_cli_flags_match_jax(tmp_path):
     from librabft_simulator_tpu import main as jax_main
     from librabft_simulator_tpu_torch import main as port_main
 
@@ -169,6 +169,9 @@ def test_cli_flags_match_jax():
     pf = flags(port_main.build_parser(), {"help", "device"})
     assert pf == jf
     assert port_main.build_parser().parse_args([]).device == "cuda"
-    for argv in (["--byzantine_f", "1"], ["--output_data_files", "out"]):
-        with pytest.raises(NotImplementedError):
-            port_main.main(argv + ["--device", "cpu"])
+    short = ["--device", "cpu", "--nodes", "4", "--max_clock", "40"]
+    assert port_main.main(short + ["--byzantine_f", "1"])["safe_fraction"] == 1.0
+    out = tmp_path / "out"
+    port_main.main(short + ["--output_data_files", str(out)])
+    assert sorted(f.name for f in out.iterdir()) == [
+        "number_of_messages.txt", "round_switches.txt", "summary.json"]
