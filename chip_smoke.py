@@ -34,7 +34,7 @@ Phases, each printed with its seconds:
      batch steps run;
   5. card vs CPU: four of those instances re-run on the CPU with the plain
      select, every leaf compared bit for bit with the card's final rows;
-  6. where the time goes (serial): 8 batch steps of a fresh fleet under
+  6. where the time goes (serial): 4 batch steps of a fresh fleet under
      torch.profiler (device busy share, kernels per step, top kernels);
   7. config #4: byzantine.f_sweep for f in {0, 1} (4 nodes, the sweep's
      SimParams, 10,000 instances); safe fraction 1, live fraction > 0, the
@@ -44,11 +44,31 @@ Phases, each printed with its seconds:
      drop, 1,000 instances, 256-slot inboxes, 16 lanes, drain 8):
      select_queue_events launches = drain x windows; windows, ms per
      window, events/s, rounds/s, drops, inbox-full, peak memory; then 3
-     instances re-run on the CPU, every leaf equal; then a few windows of a
-     fresh fleet under torch.profiler;
+     instances re-run on the CPU, every leaf equal; then one window of a
+     fresh fleet, after two, under torch.profiler;
   9. config #5 on the lane engine at full width (16 nodes, 2-chain, uniform
      delay, 256-slot inboxes, 10,000 instances), as phase 8 without the
-     profile.
+     profile;
+ 10. config #2 with the telemetry plane and the consensus watchdog on
+     (default flight_cap and stall threshold), through
+     run_to_completion(stream=TimelineRecorder): ms per batch step beside
+     phase 4's, launches per step under torch.profiler, the final digest and
+     the merged telemetry block, and ms per step with the planes off and on
+     in turns on one run; on every instance the plane's event counts
+     sum to n_events and its drops and overflow equal the state's; the
+     card's final digest equals compute_digest of the state's CPU copy; one
+     instance carries a planted conflicting commit (tests/test_stream.py's
+     doctor_ctx) that must trip safety_conflict and round_regress, and the
+     picked instances (it among them) equal a CPU run in every leaf;
+ 11. config #5 on the lane engine with both planes and the stream: ms per
+     window beside phase 9's and, in turns, off and on; peak memory, the
+     inbox overflow, high-water mark and saturation counts, the counter
+     invariants, three instances equal a CPU run in every leaf;
+ 12. a checkpoint round trip on the card: phase 10's fleet, saved
+     (sim/checkpoint.py) after its first chunk, is loaded on the card and
+     resumed, and must equal phase 10's run, which went on in memory, in
+     every leaf; the checkpoint loaded on the CPU equals the card's state it
+     was saved from.
 
 Only the horizon (max_clock) of a main path is cut, to fit the time limit;
 each cut is printed.  Every path is driven with the launch counts set to 0
@@ -63,8 +83,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -80,8 +103,14 @@ COLD_SETS = 10                 # input sets cycled by cold_ms (at least),
 COLD_BYTES = 80e6              # and together at least this much: > the 50 MB L2
 WIDE_M = (400, 640)            # wide rows: staged above 48 KB; past a block's shared memory
 PLAIN_CALLS = 16               # calls per cold_ms round of a plain version (~20 kernels each)
+# Profiled calls: the profiler's post-processing takes ~0.35 ms per kernel on
+# the card's host, so the depth is cut to 4 batch steps (8 before PR 6) and 1
+# window after 2 warm ones (2 after 4 before PR 6) to keep the script short.
+PROFILE_STEPS = 4
+PROFILE_WINDOWS = 1
 FULL_CLOCK = 1000              # the BASELINE configs' horizon
 LANE_PICKS = 3                 # lane instances re-run on the CPU
+DOCTOR_I = 3                   # phase 10's instance with a planted conflicting commit
 
 
 def phase(name):
@@ -318,7 +347,8 @@ def profile_device(step, st, steps, unit, warm=4):
         if getattr(evt, "device_type", None) is not None and \
                 str(evt.device_type).endswith("CUDA") and dev_us > 0:
             rows.append((dev_us, evt.count, evt.key))
-    print(f"   {steps} {unit}s: wall {wall / steps * 1e3:.3f} ms/{unit}")
+    print(f"   {steps} {unit}s after {warm} (cut; see PROFILE_STEPS): wall "
+          f"{wall / steps * 1e3:.3f} ms/{unit}")
     if not rows:
         print("   device time: not measured (the profiler saw no device kernels)")
         return
@@ -568,6 +598,7 @@ def main(argv=None):
     if not float(st.ctx.commit_count.float().mean()) > 0:
         raise AssertionError("config #2: the fleet committed nothing")
     by_path["config #2 serial"] = launches["select_queue_events"]
+    serial_ms = wall / steps * 1e3
     done("main path, serial (config #2)", t)
 
     t = phase("5. card vs CPU (config #2)")
@@ -583,18 +614,50 @@ def main(argv=None):
     t = phase("6. where the time goes (config #2)")
     dt, du = S.tables(p, "cuda")
     profile_device(lambda x: S.step(p, dt, du, x, False, False),
-                   S.init_batch(p, seeds, device="cuda"), 8, "batch step")
+                   S.init_batch(p, seeds, device="cuda"), PROFILE_STEPS, "batch step")
     done("where the time goes (config #2)", t)
 
     t = phase("7. config #4: Byzantine f-sweep")
     by_path["config #4 f-sweep"] = fsweep_phase(args, sel, b)
     done("config #4: Byzantine f-sweep", t)
 
+    window_ms = {}
     for num, (name, (pl, bl)) in zip((8, 9), lane_cfgs.items()):
         t = phase(f"{num}. {name} on the lane engine")
-        by_path[f"{name} lanes"] = lane_phase(name, pl, bl, sel, P, to_reference,
-                                              profile=name == "config #3")
+        by_path[f"{name} lanes"], window_ms[name] = lane_phase(
+            name, pl, bl, sel, P, to_reference, profile=name == "config #3")
         done(f"{name} on the lane engine", t)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        pt = dataclasses.replace(p, telemetry=True, watchdog=True)
+        t = phase("10. telemetry and watchdog, serial (config #2)")
+        by_path["config #2 serial, planes on"], final, mid, path = serial_planes_phase(
+            pt, b, sel, to_reference, serial_ms, tmp)
+        done("telemetry and watchdog, serial (config #2)", t)
+
+        t = phase("11. config #5 on the lane engine, planes and stream on")
+        p5t = dataclasses.replace(p5, telemetry=True, watchdog=True)
+        from librabft_simulator_tpu_torch.telemetry.stream import TimelineRecorder
+        with TimelineRecorder(p5t, total_instances=10000,
+                              out=os.path.join(tmp, "config5.ndjson")) as rec:
+            by_path["config #5 lanes, planes on"], ms = lane_phase(
+                "config #5", p5t, 10000, sel, P, to_reference, profile=False, stream=rec)
+        print(f"   ms per window: planes on {ms:.3f}, off {window_ms['config #5']:.3f} "
+              f"(phase 9); stream: {len(rec.rows)} chunks, final digest "
+              f"{json.dumps(rec.summary()['final'])}")
+        dt5, du5 = S.tables(p5t, "cuda")
+        planes_turns(lambda pw, x: P.step(pw, dt5, du5, P.d_min_of(pw), x, False, False),
+                     p5t, P.init_batch(p5t, np.arange(10000, dtype=np.uint32), device="cuda"),
+                     4, 2, "window")
+        done("config #5 on the lane engine, planes and stream on", t)
+
+        t = phase("12. checkpoint round trip on the card (config #2, planes on)")
+        by_path["config #2 checkpoint round trip"] = checkpoint_phase(
+            pt, sel, to_reference, final, mid, path)
+        done("checkpoint round trip on the card (config #2, planes on)", t)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     kernels = []
     for name in ("select_queue_events", "select_events"):
@@ -672,18 +735,21 @@ def fsweep_phase(args, sel, b):
     return launches["select_queue_events"]
 
 
-def lane_phase(name, p, b, sel, P, to_reference, profile):
-    """One lane config at full width: run, check launches, compare a few
-    instances with the CPU, optionally profile; returns the select launches."""
+def lane_phase(name, p, b, sel, P, to_reference, profile, stream=None):
+    """One lane config at full width: run (through ``stream`` if given),
+    check launches (and, with the planes on, their invariants), compare a
+    few instances with the CPU, optionally profile; returns the select
+    launches and the ms per window."""
     from librabft_simulator_tpu_torch.sim import simulator as S
 
     print(f"   {name}: n={p.n_nodes} {p.delay_kind} drop={p.drop_prob} "
           f"commit_chain={p.commit_chain} inbox={P.inbox_cap(p)} lanes={P.lanes_of(p)} "
-          f"drain={P.drain_of(p)} B={b}; cut: max_clock {FULL_CLOCK} -> {p.max_clock}")
+          f"drain={P.drain_of(p)} B={b} telemetry={p.telemetry} watchdog={p.watchdog}; "
+          f"cut: max_clock {FULL_CLOCK} -> {p.max_clock}")
     seeds = np.arange(b, dtype=np.uint32)
     torch.cuda.reset_peak_memory_stats()
     st, wall, launches = counted_run(sel, lambda: P.run_to_completion(
-        p, P.init_batch(p, seeds, device="cuda"), batched=True))
+        p, P.init_batch(p, seeds, device="cuda"), batched=True, stream=stream))
     windows = P.run_to_completion.last_steps
     fleet_line(st, wall, windows, "window")
     k = P.drain_of(p)
@@ -693,6 +759,8 @@ def lane_phase(name, p, b, sel, P, to_reference, profile):
         raise AssertionError(f"{name}: launches {launches}, windows {windows}")
     if not int(st.n_events.sum()) > 0:
         raise AssertionError(f"{name}: no events")
+    if p.telemetry:
+        plane_checks(p, st, name)
 
     t = time.perf_counter()
     rng = np.random.default_rng(1)
@@ -707,7 +775,186 @@ def lane_phase(name, p, b, sel, P, to_reference, profile):
     if profile:
         dt, du = S.tables(p, "cuda")
         profile_device(lambda x: P.step(p, dt, du, P.d_min_of(p), x, False, False),
-                       P.init_batch(p, seeds, device="cuda"), 2, "window")
+                       P.init_batch(p, seeds, device="cuda"), PROFILE_WINDOWS, "window",
+                       warm=2)
+    return launches["select_queue_events"], wall / windows * 1e3
+
+
+def planes_turns(step, p, st, warm, seg, unit):
+    """ms per call with both planes off and on, in turns (off, on, on, off)
+    over consecutive segments of ``seg`` calls of one run, after ``warm``
+    calls: a comparison that the host's drift over the script does not
+    bias.  ``step(params, st)`` makes one call; the planes' leaves ride
+    along untouched while they are off.  Returns the state."""
+    p_off = dataclasses.replace(p, telemetry=False, watchdog=False)
+    with torch.no_grad():
+        for _ in range(warm):
+            st = step(p_off, st)
+        times = {"off": [], "on": []}
+        for which in ("off", "on", "on", "off"):
+            pw = p_off if which == "off" else p
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(seg):
+                st = step(pw, st)
+            torch.cuda.synchronize()
+            times[which].append((time.perf_counter() - t0) / seg * 1e3)
+    off, on = np.mean(times["off"]), np.mean(times["on"])
+    print(f"   in turns (off, on, on, off), {seg} {unit}s each after {warm}: off "
+          f"{times['off'][0]:.3f}, on {times['on'][0]:.3f}, on {times['on'][1]:.3f}, off "
+          f"{times['off'][1]:.3f} ms/{unit}; mean on/off {on / off:.4f}")
+    return st
+
+
+def plane_checks(p, st, label):
+    """The metrics plane's counter invariants on every instance: its event
+    counts (and flight count) sum to n_events, its drops and overflow equal
+    the state's.  Prints the merged telemetry block and the watchdog's
+    trip totals."""
+    from librabft_simulator_tpu_torch.telemetry import plane, report, stream
+
+    def col(name):
+        return st.metrics[:, plane.slot(p, name)[0]]
+
+    full = st.n_queue_full if hasattr(st, "n_queue_full") else st.n_inbox_full
+    ev = col("ev_notify") + col("ev_request") + col("ev_response") + col("ev_timer")
+    for got, want, what in ((ev, st.n_events, "event counts"),
+                            (col("fr_count"), st.n_events, "fr_count"),
+                            (col("drops"), st.n_msgs_dropped, "drops"),
+                            (col("overflow"), full, "overflow")):
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            raise AssertionError(f"{label}: plane {what} != state on {bad} instances")
+    print(f"   {label}: on all {st.clock.shape[0]} instances the plane's event counts "
+          f"and fr_count sum to n_events, its drops and overflow equal the state's")
+    print(f"   telemetry block: {json.dumps(report.telemetry_block(p, st))}")
+    if p.watchdog:
+        tot = st.wd.sum(dim=0).tolist()
+        print(f"   watchdog totals: {dict(zip(stream.WD_SLOTS[1:], tot[1:]))}")
+
+
+def doctored_fleet(S, p, seeds, device, row):
+    """init_batch with a conflicting committed entry planted on instance
+    ``row``'s node 1, as tests/test_stream.py's doctor_ctx plants it (depth
+    1, a tag no honest chain produces, round 999): that node's next commit
+    trips round_regress and the other nodes' first commit safety_conflict."""
+    st = S.init_batch(p, seeds, device=device)
+    cx = st.ctx
+
+    def planted(x, idx, v):
+        x = x.clone()
+        x[idx] = v
+        return x
+
+    return st.replace(ctx=cx.replace(
+        commit_count=planted(cx.commit_count, (row, 1), 1),
+        log_depth=planted(cx.log_depth, (row, 1, 0), 1),
+        log_tag=planted(cx.log_tag, (row, 1, 0), int(np.uint32(0xDEADBEEF).view(np.int32))),
+        log_round=planted(cx.log_round, (row, 1, 0), 999)))
+
+
+def serial_planes_phase(p, b, sel, to_reference, serial_ms, tmp):
+    """Config #2 with both planes on through run_to_completion(stream=):
+    checks and prints as the module docstring says (phase 10); returns the
+    select launches and the final state's leaves."""
+    from librabft_simulator_tpu_torch.core.types import tree_map
+    from librabft_simulator_tpu_torch.sim import simulator as S
+    from librabft_simulator_tpu_torch.telemetry import stream
+
+    print(f"   config #2 as phase 4, telemetry=True flight_cap={p.flight_cap}, watchdog=True "
+          f"watchdog_stall_events={p.watchdog_stall_events}; cut: max_clock {FULL_CLOCK} "
+          f"-> {p.max_clock}; instance {DOCTOR_I} carries a planted conflicting commit")
+    from librabft_simulator_tpu_torch.sim import checkpoint as ckpt
+
+    seeds = np.arange(b, dtype=np.uint32)
+    path = os.path.join(tmp, "config2.npz")
+    # Two calls with one recorder: the first chunk, then the rest.  Between
+    # them the state is saved for phase 12 (outside the timed calls); the
+    # second call continues the same state in memory.
+    with stream.TimelineRecorder(p, total_instances=b,
+                                 out=os.path.join(tmp, "config2.ndjson")) as rec:
+        mid, wall1, launches1 = counted_run(sel, lambda: S.run_to_completion(
+            p, doctored_fleet(S, p, seeds, "cuda", DOCTOR_I), batched=True, stream=rec,
+            max_chunks=1))
+        steps1 = S.run_to_completion.last_steps
+        t0 = time.perf_counter()
+        ckpt.save(path, mid)
+        save_s = time.perf_counter() - t0
+        mid_ref = to_reference(mid)
+        st, wall2, launches2 = counted_run(sel, lambda: S.run_to_completion(
+            p, mid, batched=True, stream=rec))
+    del mid
+    steps, wall = steps1 + S.run_to_completion.last_steps, wall1 + wall2
+    launches = {k: launches1[k] + launches2[k] for k in launches1}
+    fleet_line(st, wall, steps, "batch step")
+    print(f"   ms per batch step: planes on {wall / steps * 1e3:.3f}, off {serial_ms:.3f} "
+          f"(phase 4); launches {launches} (batch steps {steps}); stream: "
+          f"{len(rec.rows)} chunks of {S.RUN_CHUNK} steps, one [13] digest fetch each; "
+          f"saved after the first chunk for phase 12 in {save_s:.3f} s "
+          f"({os.path.getsize(path) / 1e6:.1f} MB .npz)")
+    if (not bool(st.halted.all()) or launches["select_events"]
+            or launches["select_queue_events"] != steps):
+        raise AssertionError(f"config #2 planes on: launches={launches} steps={steps}")
+    plane_checks(p, st, "config #2")
+    final = stream.decode_digest(stream.compute_digest(p, tree_map(lambda x: x.cpu(), st)))
+    last = {k: rec.rows[-1][k] for k in final}
+    print(f"   final digest (card, last stream row): {json.dumps(last)}")
+    if last != final:
+        raise AssertionError(f"card digest {last} != compute_digest of the CPU copy {final}")
+    print("   the card's final digest equals compute_digest of the state's CPU copy")
+    wd = st.wd.cpu().numpy()
+    for slot in (stream.WD_SAFETY_CONFLICT, stream.WD_ROUND_REGRESS):
+        tripped = np.flatnonzero(wd[:, slot]).tolist()
+        if tripped != [DOCTOR_I]:
+            raise AssertionError(f"{stream.WD_SLOTS[slot]} tripped on {tripped[:8]}, "
+                                 f"want [{DOCTOR_I}]")
+    print(f"   planted conflict on instance {DOCTOR_I}: safety_conflict "
+          f"{int(wd[DOCTOR_I, stream.WD_SAFETY_CONFLICT])}, round_regress "
+          f"{int(wd[DOCTOR_I, stream.WD_ROUND_REGRESS])}, on no other instance")
+    final_ref = to_reference(st)
+
+    t = time.perf_counter()
+    rng = np.random.default_rng(2)
+    picks = sorted({0, DOCTOR_I, b - 1, int(rng.integers(4, b - 1))})
+    gpu = to_reference(S.select_instances(st, picks))
+    del st
+    cpu = to_reference(S.run_to_completion(
+        p, doctored_fleet(S, p, seeds[picks], "cpu", picks.index(DOCTOR_I))))
+    leaves_equal(cpu, gpu, "config #2 planes on, card vs CPU")
+    print(f"   card vs CPU: instances {picks} equal in every leaf ({len(gpu)} leaves, the "
+          f"planes included), {time.perf_counter() - t:.3f} s")
+    dt, du = S.tables(p, "cuda")
+    profile_device(lambda x: S.step(p, dt, du, x, False, False),
+                   S.init_batch(p, seeds, device="cuda"), PROFILE_STEPS, "batch step")
+    planes_turns(lambda pw, x: S.step(pw, dt, du, x, False, False), p,
+                 S.init_batch(p, seeds, device="cuda"), 32, 16, "batch step")
+    return launches["select_queue_events"], final_ref, mid_ref, path
+
+
+def checkpoint_phase(p, sel, to_reference, final_ref, mid_ref, path):
+    """Phase 12: phase 10's checkpoint (its fleet after one chunk) is loaded
+    on the card and resumed; the result must equal phase 10's run in every
+    leaf, and the checkpoint loaded on the CPU the state it was saved from.
+    Returns the select launches."""
+    from librabft_simulator_tpu_torch.sim import checkpoint as ckpt
+    from librabft_simulator_tpu_torch.sim import simulator as S
+
+    t0 = time.perf_counter()
+    back = ckpt.load(path, p, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    fin, wall, launches = counted_run(sel, lambda: S.run_to_completion(p, back, batched=True))
+    steps = S.run_to_completion.last_steps
+    print(f"   load on the card {load_s:.3f} s ({os.path.getsize(path) / 1e6:.1f} MB .npz), "
+          f"resume: {steps} batch steps, launches {launches}, wall {wall:.3f} s")
+    if launches["select_queue_events"] != steps or launches["select_events"]:
+        raise AssertionError(f"checkpoint round trip: launches {launches}, steps {steps}")
+    leaves_equal(final_ref, to_reference(fin), "saved, loaded and resumed vs uninterrupted")
+    print(f"   resumed run equals phase 10's uninterrupted run in every leaf ({len(final_ref)})")
+    del back, fin
+    leaves_equal(mid_ref, to_reference(ckpt.load(path, p, device="cpu")),
+                 "card checkpoint loaded on the CPU")
+    print("   the card's checkpoint loaded on the CPU equals the state it was saved from")
     return launches["select_queue_events"]
 
 

@@ -23,18 +23,7 @@ from typing import Optional
 import numpy as np
 
 from ..core.types import SimParams
-
-
-def ring_order(count: int, cap: int) -> list:
-    """Chronological storage indices of a capacity-``cap`` append ring after
-    ``count`` appends, oldest surviving entry first (a copy of the JAX
-    package's ``telemetry/plane.py::ring_order``)."""
-    if cap <= 0:
-        return []
-    if count > cap:
-        start = count % cap
-        return [(start + i) % cap for i in range(cap)]
-    return list(range(count))
+from ..telemetry.plane import ring_order
 
 
 def _row(x, instance):

@@ -10,7 +10,11 @@ Config 5: two-chain HotStuff variant, 16 nodes, 10k instances (lane engine).
     python -m librabft_simulator_tpu_torch.analysis.sweeps --scale 0.01
     python -m librabft_simulator_tpu_torch.analysis.sweeps --device cpu --scale 0.001
 
-It runs on the GPU unless ``--device cpu`` is given.
+It runs on the GPU unless ``--device cpu`` is given.  ``--telemetry`` and
+``--watchdog`` turn on the metrics plane and the consensus watchdog (each
+row gains the merged ``telemetry`` block), and ``--stream-out PATH`` streams
+each non-sweep config's per-chunk digest timeline as NDJSON to
+``PATH.<config>.ndjson`` (the row gains its ``stream`` summary).
 """
 
 from __future__ import annotations
@@ -28,13 +32,14 @@ from ..core.types import SimParams
 from ..sim import byzantine as B
 from ..sim import parallel_sim as P
 from ..sim import simulator as S
+from ..telemetry import report as tel_report, stream as tstream
 
 
 def _fleet_stats(p: SimParams, st, elapsed: float) -> dict:
     g = lambda x: x.cpu().numpy()  # noqa: E731
     cc = g(st.ctx.commit_count)
     rounds = (g(st.store.current_round).max(axis=-1) - 1).sum()
-    return {
+    out = {
         "instances": int(cc.shape[0]),
         "n_nodes": p.n_nodes,
         "total_commits": int(cc.sum()),
@@ -51,6 +56,10 @@ def _fleet_stats(p: SimParams, st, elapsed: float) -> dict:
                             else st.n_inbox_full).sum()),
         "sync_jumps": int(g(st.ctx.sync_jumps).sum()),
     }
+    if p.telemetry:
+        # The merged telemetry block rides along on every sweep row.
+        out["telemetry"] = tel_report.telemetry_block(p, st)
+    return out
 
 
 def _not_ported(flag: str, where: str):
@@ -61,11 +70,11 @@ def run_config(p: SimParams, n_instances: int, seed0: int = 0, f: int = 0,
                byz_kind: str = "equivocate", engine=S, dp: int = 0, stream=None,
                device="cuda") -> dict:
     """One configuration on one device: init, run to completion, fleet
-    stats (and the safe fraction when ``f > 0``)."""
+    stats (and the safe fraction when ``f > 0``).  ``stream`` (a
+    telemetry/stream.TimelineRecorder) receives the per-chunk digest and
+    the row gains its timeline summary."""
     if dp > 0:
         _not_ported("dp > 0 (a dp-sharded fleet)", "the multi-GPU slice")
-    if stream is not None:
-        _not_ported("stream= (the digest timeline)", "the telemetry-plane slice")
     seeds = np.arange(seed0, seed0 + n_instances, dtype=np.uint32)
     if f > 0:
         if engine is not S:
@@ -76,10 +85,12 @@ def run_config(p: SimParams, n_instances: int, seed0: int = 0, f: int = 0,
     else:
         st = engine.init_batch(p, seeds, device=device)
     t0 = time.perf_counter()
-    st = engine.run_to_completion(p, st, batched=True)
+    st = engine.run_to_completion(p, st, batched=True, stream=stream)
     if st.clock.is_cuda:
         torch.cuda.synchronize(st.clock.device)
     out = _fleet_stats(p, st, time.perf_counter() - t0)
+    if stream is not None:
+        out["stream"] = stream.summary()
     if f > 0:
         honest = np.arange(p.n_nodes) >= f
         out["f"] = f
@@ -118,17 +129,20 @@ def run_all(scale: float = 1.0, out_path: str | None = None,
             stream_out: str | None = None, watchdog: bool = False,
             macro_k: int = 0, device="cuda") -> dict:
     """Every BASELINE configuration in turn; config #4 is an f-sweep over
-    f in [0, n/3]."""
+    f in [0, n/3].  ``telemetry`` / ``watchdog`` turn the planes on in every
+    config; ``stream_out`` streams every non-sweep config's digest timeline
+    to ``{stem}.{config}.ndjson`` and attaches its summary to the row."""
     for on, flag, where in (
-            (telemetry, "--telemetry", "the telemetry-plane slice"),
-            (watchdog, "--watchdog", "the telemetry-plane slice"),
-            (stream_out, "--stream-out", "the telemetry-plane slice"),
             (dp > 0, "--dp", "the multi-GPU slice"),
             (macro_k > 0, "--macro-k", "the sharded-runtime slice")):
         if on:
             _not_ported(flag, where)
     results = {}
     for name, (p, n, f_mode) in baseline_configs(scale).items():
+        if telemetry:
+            p = dataclasses.replace(p, telemetry=True)
+        if watchdog:
+            p = dataclasses.replace(p, watchdog=True)
         if f_mode == "sweep":
             results[name] = [
                 dataclasses.asdict(r)
@@ -136,8 +150,18 @@ def run_all(scale: float = 1.0, out_path: str | None = None,
                                    device=device)
             ]
         else:
-            results[name] = run_config(
-                p, n, engine=P if f_mode == "parallel" else S, device=device)
+            stream = None
+            if stream_out:
+                stem = stream_out[:-7] if stream_out.endswith(".ndjson") else stream_out
+                stream = tstream.TimelineRecorder(
+                    p, out=f"{stem}.{name}.ndjson", meta={"config": name})
+            try:
+                results[name] = run_config(
+                    p, n, engine=P if f_mode == "parallel" else S, stream=stream,
+                    device=device)
+            finally:
+                if stream is not None:
+                    stream.close()
         print(f"[sweep] {name}: done", file=sys.stderr)
     if out_path:
         with open(out_path, "w") as f:
@@ -151,15 +175,18 @@ def build_parser():
                     help="instance-count scale factor (1.0 = full BASELINE sizes)")
     ap.add_argument("--out", default=None, help="write JSON to this path")
     ap.add_argument("--telemetry", action="store_true",
-                    help="not ported yet (the telemetry-plane slice)")
+                    help="run with SimParams.telemetry on and attach the "
+                         "merged telemetry block to every sweep row")
     ap.add_argument("--dp", type=int, default=0,
                     help="not ported yet (the multi-GPU slice)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="torch device the fleets run on")
     ap.add_argument("--stream-out", default=None, metavar="PATH",
-                    help="not ported yet (the telemetry-plane slice)")
+                    help="stream each config's per-chunk fleet-health "
+                         "digest timeline as NDJSON to PATH.<config>.ndjson")
     ap.add_argument("--watchdog", action="store_true",
-                    help="not ported yet (the telemetry-plane slice)")
+                    help="run with SimParams.watchdog on so the streamed "
+                         "digests carry live consensus-anomaly trip counts")
     ap.add_argument("--macro-k", type=int, default=0, metavar="K",
                     help="not ported yet (the sharded-runtime slice)")
     return ap

@@ -2,7 +2,8 @@
 
 ``to_reference`` gives every leaf of a serial ``SimState`` or a lane
 ``PSimState`` as a numpy array (a copy) keyed by its JAX pytree path
-(``"store.blk_round"``, ``"queue.payload"``, ``"in_pay"``, ...), uint32
+(``"store.blk_round"``, ``"queue.payload"``, ``"in_pay"``, the planes
+``"metrics"``, ``"flight"`` and ``"wd"``, ...), uint32
 leaves viewed back as uint32.  ``from_reference`` is the inverse: it takes
 such a dict (uint32 leaves as uint32 or as int32 bit patterns) and builds a
 port state on ``device``: a ``PSimState`` when the dict has the lane

@@ -60,7 +60,7 @@ DELAY_KEY_DEFAULTS = dict(delay_kind="lognormal", delay_mean=10.0,
 #: Width of one attack-schedule window row (the adversary plane's leaf,
 #: zero-width until that slice lands).
 ADV_FIELDS = 7
-#: Columns of one flight-recorder row (telemetry plane, zero-width here).
+#: Columns of one flight-recorder row (telemetry/plane.py).
 FR_COLS = 5
 
 
@@ -72,8 +72,8 @@ class SimParams:
     The lowering fields (``select_kernel``, ``unroll``, ``packed``,
     ``dense_writes``, ``gate_handlers``) pick between bit-identical forms in
     the JAX package and have no effect in the port.  The planes of later
-    slices (``telemetry``, ``watchdog``, ``scenario``, ``adversary``,
-    ``macro_k > 1``, ``mp_authors``, ``wrap="device"``) raise in the engines
+    slices (``scenario``, ``adversary``, ``macro_k > 1``, ``mp_authors``,
+    ``wrap="device"``) raise in the engines
     until they land; ``shuffle_receivers`` is a serial-engine semantic that
     the lane engine refuses, as in the JAX package."""
 
@@ -668,9 +668,9 @@ class Queue(Tree):
 
 @dataclasses.dataclass
 class SimState(Tree):
-    """A batch of instances: N nodes + network each.  The planes of later
-    slices (metrics, flight, wd, sc_*, adv_*) keep their zero-width
-    shapes, so the leaf set equals the JAX package's."""
+    """A batch of instances: N nodes + network each.  The planes that are
+    off (metrics, flight, wd) and those of later slices (sc_*, adv_*) keep
+    their zero-width shapes, so the leaf set equals the JAX package's."""
 
     store: Store
     pm: Pacemaker
@@ -700,9 +700,9 @@ class SimState(Tree):
     trace_round: Array    # [T]
     trace_time: Array     # [T]
     trace_count: Array
-    metrics: Array        # [0] (telemetry slice)
-    flight: Array         # [0, FR_COLS]
-    wd: Array             # [0] (watchdog slice)
+    metrics: Array        # [M] telemetry plane ([0] when off)
+    flight: Array         # [K, FR_COLS] flight ring (K = 0 when off)
+    wd: Array             # [WD] watchdog plane ([0] when off)
     sc_delay: Array       # [0] (scenario slice)
     sc_commit: Array      # [0]
     adv_sched: Array      # [0, ADV_FIELDS] (adversary slice)

@@ -103,7 +103,8 @@ def main(argv=None):
     elapsed = time.perf_counter() - t0
 
     cc = st.ctx.commit_count.cpu().numpy()
-    per_node = cc[0].tolist() if args.instances == 1 else cc.mean(axis=0).tolist()
+    # As the JAX CLI: the batched [1, N] list for one instance, else the mean.
+    per_node = cc.tolist() if args.instances == 1 else cc.mean(axis=0).tolist()
     print(f"Commands executed per node: {per_node}", file=sys.stderr)
     summary = {
         "seed": int(seed),

@@ -32,6 +32,12 @@ engine donates its state buffers.
 On the CPU, a drain iteration in which no lane of any instance is active
 ends the window's drain (nothing would change in it or after it); on the
 card all ``K`` iterations are queued without a host sync.
+
+With ``SimParams.telemetry`` / ``watchdog`` on, every drain iteration and
+every window update the metrics plane, the flight ring and the watchdog
+plane (telemetry/); the stall and queue-saturation detectors count per
+window here, where the serial engine counts them per event.  Off, nothing
+runs for them.
 """
 
 from __future__ import annotations
@@ -43,7 +49,6 @@ import torch
 
 from ..core.types import (
     ADV_FIELDS,
-    FR_COLS,
     KIND_NOTIFY,
     KIND_REQUEST,
     KIND_RESPONSE,
@@ -63,6 +68,7 @@ from ..core.types import (
     unpack_payload,
 )
 from ..ops.select_events import select_queue_events
+from ..telemetry import plane as tplane, stream as tstream
 from ..utils import hashing as H
 from ..utils.quantile import TABLE_BITS
 from ..utils.xops import arange, const, needed, scatter_set, zeros
@@ -123,9 +129,9 @@ class PSimState(Tree):
     trace_round: Array
     trace_time: Array
     trace_count: Array
-    metrics: Array        # [0] (telemetry slice)
-    flight: Array         # [0, FR_COLS]
-    wd: Array             # [0] (watchdog slice)
+    metrics: Array        # [M] telemetry plane ([0] when off)
+    flight: Array         # [K, FR_COLS] flight ring (K = 0 when off)
+    wd: Array             # [WD] watchdog plane ([0] when off)
     sc_delay: Array       # [0] (scenario slice)
     sc_commit: Array
     adv_sched: Array      # [0, ADV_FIELDS] (adversary slice)
@@ -258,7 +264,8 @@ def init_batch(p: SimParams, seeds, weights=None, byz_equivocate=None,
         n_events=z(b), n_msgs_sent=z(b), n_msgs_dropped=z(b), n_inbox_full=z(b),
         trace_node=z(b, p.trace_cap), trace_round=z(b, p.trace_cap),
         trace_time=z(b, p.trace_cap), trace_count=z(b),
-        metrics=z(b, 0), flight=z(b, 0, FR_COLS), wd=z(b, 0),
+        metrics=tplane.init_plane(p, (b,), device), flight=tplane.init_flight(p, (b,), device),
+        wd=tstream.init_wd(p, (b,), device),
         sc_delay=z(b, 0), sc_commit=z(b, 0),
         adv_sched=z(b, 0, ADV_FIELDS), adv_link=z(b, 0, 0), adv_group=z(b, 0),
         adv_heal=z(b, 0),
@@ -388,6 +395,8 @@ def step(p: SimParams, delay_table, dur_table, d_min: int, st: PSimState,
     kinds_rest = torch.cat([const((rows, n), KIND_NOTIFY, I32, dev),
                             const((rows, n), KIND_REQUEST, I32, dev)], dim=1)
     lane_rows = arange(rows, dev)
+    startup_l = per_lane(st.startup) if p.telemetry else None
+    metrics, flight, wd = st.metrics, st.flight, st.wd
 
     ys = []
     for _ in range(K):
@@ -405,7 +414,8 @@ def step(p: SimParams, delay_table, dur_table, d_min: int, st: PSimState,
         is_request = consume & (k_l == KIND_REQUEST)
         is_response = consume & (k_l == KIND_RESPONSE)
         do_update = act & (is_tm | is_notify | is_response)
-        pre_round = g_pm.active_round
+        pre_round, pre_start = g_pm.active_round, g_pm.round_start
+        pre_cc, pre_sync = g_cx.commit_count, g_cx.sync_jumps
         (g_store, g_pm, g_nx, g_cx, actions, should_sync, bank, g_hop,
          g_hoe) = S.handle_events(
             p, dur_table, g_store, g_pm, g_nx, g_cx, weights_l, author,
@@ -458,11 +468,20 @@ def step(p: SimParams, delay_table, dur_table, d_min: int, st: PSimState,
             tr_r = scatter_set(tr_r, tpos, g_pm.active_round.view(b, A))
             tr_t = scatter_set(tr_t, tpos, t_l.view(b, A))
         tr_c = tr_c + switched.sum(dim=1, dtype=I32)
+        if p.watchdog:
+            wd = _drain_watchdog(p, st.ctx, wd, b, author, act, switched, g_cx,
+                                 pre_cc, pre_sync)
+        if p.telemetry:
+            metrics, flight = _drain_telemetry(
+                p, metrics, flight, b, author, act, is_tm, k_l, t_l, is_notify,
+                is_request, is_response, dropped, switched, g_store, g_pm, g_cx,
+                g_iv, pre_start, pre_cc, pre_sync, startup_l)
         ys.append((go, kinds, recvs, stamps, arrive, pay_sel, bank))
 
     out = dict(clock=torch.where(live, clock, st.clock), halted=halt)
     if not ys:
-        return st.replace(**out)
+        return st.replace(**out, **_window_planes(
+            p, st, metrics, flight, wd, live, t_ev, hz, qualify, A, 0))
 
     # ---- Scatter lane state back (lanes are distinct nodes; rows the window
     # left untouched write back their own values).
@@ -531,13 +550,138 @@ def step(p: SimParams, delay_table, dur_table, d_min: int, st: PSimState,
         src = y[6].view(rows * 4, F).index_select(0, (bank_rows + y[5]).view(-1))
         pay_buf.index_put_((tgt[:, k * A:(k + 1) * A].reshape(-1),), src)
 
+    n_over = overflow.view(b, -1).sum(dim=1, dtype=I32)
     out.update(
         n_msgs_sent=st.n_msgs_sent + torch.where(
             live, place.view(b, -1).sum(dim=1, dtype=I32), 0),
-        n_inbox_full=st.n_inbox_full + torch.where(
-            live, overflow.view(b, -1).sum(dim=1, dtype=I32), 0),
+        n_inbox_full=st.n_inbox_full + torch.where(live, n_over, 0),
     )
-    return st.replace(**out)
+    return st.replace(**out, **_window_planes(
+        p, st, metrics, flight, wd, live, t_ev, hz, qualify, A, n_over))
+
+
+def _drain_watchdog(p: SimParams, ctx0, wd, b, author, act, switched, g_cx, pre_cc,
+                    pre_sync):
+    """The watchdog's update for one drain iteration of every instance's
+    lanes (``[B*A]`` rows; telemetry/stream.py WD_SLOTS).  The stall counter
+    counts the events drained since any lane advanced a round.  A commit
+    trips the conflict detector when another node's log holds its depth
+    under another tag, read from two places: every node's log at the window
+    start (``ctx0``; a node off the lanes cannot commit in the window, a
+    lane's own row is excluded) and the other lanes' carried logs, where an
+    entry written in this same iteration counts only for a higher lane, so
+    the pair trips once, as its two serial events would.  Queue saturation
+    is counted per window, after routing (:func:`_window_planes`)."""
+    n, h, A = p.n_nodes, p.commit_log, act.shape[0] // b
+    dev = act.device
+    T = p.watchdog_stall_events
+    stall_ev0 = wd[:, tstream.WD_STALL_EV]
+    stall_ev = torch.where(switched.any(dim=1), 0,
+                           stall_ev0 + act.view(b, A).sum(dim=1, dtype=I32))
+    stall_trip = (stall_ev0 < T) & (stall_ev >= T)
+    sj_inc = (g_cx.sync_jumps - pre_sync).view(b, A).sum(dim=1, dtype=I32)
+    comm = g_cx.commit_count > pre_cc
+    d_new, t_new, r_new, r_prev, same_epoch = S.newest_commit(p, g_cx)
+    regress = comm & (g_cx.commit_count >= 2) & same_epoch & (r_new <= r_prev)
+    d4, t4 = d_new.view(b, A, 1, 1), t_new.view(b, A, 1, 1)
+    qpos = arange(h, dev)
+    # (a) The window-start logs: [B, A lanes, N nodes, H].
+    entry_ok = qpos < ctx0.commit_count.clamp(max=h).unsqueeze(-1)
+    hit = (entry_ok.unsqueeze(1) & (ctx0.log_depth.unsqueeze(1) == d4)
+           & (ctx0.log_tag.unsqueeze(1) != t4))
+    not_self = author.view(b, A, 1) != arange(n, dev)
+    hit_a = (hit & not_self.unsqueeze(-1)).flatten(2).any(dim=2)
+    # (b) The other lanes' carried logs: [B, lane i, lane j, H].
+    cc_l = g_cx.commit_count.view(b, A, 1)
+    entry_ok_l = qpos < cc_l.clamp(max=h)
+    # Ring position -> commit ordinal; ordinals >= the iteration-start count
+    # are this iteration's entries.
+    ord_l = cc_l - 1 - torch.remainder(cc_l - 1 - qpos, h)
+    new_l = ord_l >= pre_cc.view(b, A, 1)
+    lane_hit = (entry_ok_l.unsqueeze(1)
+                & (g_cx.log_depth.view(b, 1, A, h) == d4)
+                & (g_cx.log_tag.view(b, 1, A, h) != t4))
+    li, lj = arange(A, dev).view(A, 1, 1), arange(A, dev).view(1, A, 1)
+    seen = ~new_l.unsqueeze(1) | (li > lj)
+    lane_any = (lane_hit & (li != lj) & seen).flatten(2).any(dim=2)
+    conflict = comm.view(b, A) & (hit_a | lane_any)
+    return torch.stack([
+        stall_ev,
+        wd[:, tstream.WD_STALL] + stall_trip.to(I32),
+        wd[:, tstream.WD_QUEUE_SAT],
+        wd[:, tstream.WD_SYNC_JUMP] + sj_inc,
+        wd[:, tstream.WD_SAFETY_CONFLICT] + conflict.sum(dim=1, dtype=I32),
+        wd[:, tstream.WD_ROUND_REGRESS] + regress.view(b, A).sum(dim=1, dtype=I32),
+    ], dim=1).to(I32)
+
+
+def _drain_telemetry(p: SimParams, m, flight, b, author, act, is_tm, k_l, t_l,
+                     is_notify, is_request, is_response, dropped, switched, g_store,
+                     g_pm, g_cx, g_iv, pre_start, pre_cc, pre_sync, startup_l):
+    """The metrics plane and flight recorder for one drain iteration of
+    every instance's lanes.  Flight rows are appended in lane order; when
+    more lanes are active than the ring holds, only the newest
+    ``flight_cap`` ranks are written, so that every slot has one writer.
+    Returns (metrics, flight)."""
+    A = act.shape[0] // b
+
+    def per_inst(x):
+        return x.view(b, -1).sum(dim=1, dtype=I32)
+
+    m = tplane.bump(p, m, "ev_notify", per_inst(is_notify))
+    m = tplane.bump(p, m, "ev_request", per_inst(is_request))
+    m = tplane.bump(p, m, "ev_response", per_inst(is_response))
+    m = tplane.bump(p, m, "ev_timer", per_inst(act & is_tm))
+    m = tplane.bump(p, m, "drops", per_inst(dropped))
+    m = tplane.bump(p, m, "sync_jumps", per_inst(g_cx.sync_jumps - pre_sync))
+    rlat = (g_pm.round_start - pre_start).clamp(min=0)
+    m = tplane.bump_hist(p, m, "round_lat_hist", rlat.view(b, A), switched)
+    committed = g_cx.commit_count > pre_cc
+    cfound, clat = tplane.commit_latency(p, g_store, g_cx, startup_l, t_l)
+    m = tplane.bump_hist(p, m, "commit_lat_hist", clat.view(b, A),
+                         (committed & cfound).view(b, A))
+    m = tplane.bump(p, m, "commit_lat_miss", per_inst(committed & ~cfound))
+    frc = tplane.read(p, m, "fr_count")
+    a2 = act.view(b, A)
+    fr_rank = torch.cumsum(a2, dim=1, dtype=I32) - 1
+    n_act = a2.sum(dim=1, dtype=I32)
+    fr_keep = a2 & (fr_rank >= (n_act - p.flight_cap).unsqueeze(1))
+    fpos = torch.where(fr_keep, torch.remainder(frc.unsqueeze(1) + fr_rank, p.flight_cap),
+                       p.flight_cap)
+    occ = g_iv.sum(dim=1, dtype=I32)
+    rows = torch.stack([k_l.to(I32), author, t_l.to(I32), g_pm.active_round.to(I32), occ],
+                       dim=1).view(b, A, -1)
+    flight = scatter_set(flight, fpos, rows)
+    m = tplane.bump(p, m, "fr_count", n_act)
+    return m, flight
+
+
+def _window_planes(p: SimParams, st, m, flight, wd, live, t_ev, hz, qualify, A, n_over):
+    """The window-level planes, after routing (``st.in_valid`` is then the
+    routed inbox): queue saturation (any receiver's inbox full) on the
+    watchdog, and the window health, inbox overflow and inbox high-water
+    marks on the metrics plane.  Returns the leaves to replace."""
+    out = {}
+    if p.watchdog:
+        full = (st.in_valid.sum(dim=2, dtype=I32) >= inbox_cap(p)).any(dim=1)
+        wd = wd.clone()
+        wd[:, tstream.WD_QUEUE_SAT] += (live & full).to(I32)
+        out["wd"] = wd
+    if p.telemetry:
+        m = tplane.bump(p, m, "windows", when=live)
+        # Nodes with an eligible event beyond the lookahead horizon.
+        m = tplane.bump(p, m, "horizon_stall", (
+            (t_ev <= st.max_clock.unsqueeze(1)) & (t_ev >= hz.unsqueeze(1))
+        ).sum(dim=1, dtype=I32), when=live)
+        # Qualifying nodes that did not fit on the A lanes.
+        m = tplane.bump(p, m, "lane_spill",
+                        (qualify.sum(dim=1, dtype=I32) - A).clamp(min=0), when=live)
+        m = tplane.bump(p, m, "overflow", n_over, when=live)
+        depths = st.in_valid.sum(dim=2, dtype=I32)
+        m = tplane.region_max(p, m, "node_depth_hwm", depths)
+        m = tplane.region_max(p, m, "queue_hwm", depths.sum(dim=1, dtype=I32))
+        out.update(metrics=m, flight=flight)
+    return out
 
 
 @torch.no_grad()
@@ -545,15 +689,14 @@ def run_to_completion(p: SimParams, st: PSimState, chunk: int = RUN_CHUNK,
                       max_chunks: int = RUN_MAX_CHUNKS, batched: bool = False,
                       stream=None, d_min: int | None = None) -> PSimState:
     """Host loop: windows until every instance passes max_clock, ``chunk``
-    windows between reads of ``halted``.  ``d_min`` overrides the lookahead
-    (1 <= d_min <= d_min_of(p)); absent inbox overflow the trajectory does
-    not depend on it, nor on ``active_lanes`` / ``drain_k``.  The number of
-    windows taken is ``run_to_completion.last_steps``."""
+    windows between reads of ``halted``.  ``stream`` (a
+    telemetry/stream.TimelineRecorder) switches the loop to the digest
+    contract of ``simulator.stream_completion`` (its ``steps`` count
+    windows).  ``d_min`` overrides the lookahead (1 <= d_min <=
+    d_min_of(p)); absent inbox overflow the trajectory does not depend on
+    it, nor on ``active_lanes`` / ``drain_k``.  The number of windows taken
+    is ``run_to_completion.last_steps``."""
     del batched
-    if stream is not None:
-        raise NotImplementedError(
-            "run_to_completion(stream=) is not ported yet; it lands with the "
-            "telemetry-plane slice")
     check_slice(p)
     dmin = d_min_of(p) if d_min is None else int(d_min)
     if not 1 <= dmin <= d_min_of(p):
@@ -561,13 +704,21 @@ def run_to_completion(p: SimParams, st: PSimState, chunk: int = RUN_CHUNK,
     delay_table, dur_table = S.tables(p, st.clock.device)
     any_eq = bool(st.byz_equivocate.any())
     any_forge = bool(st.byz_forge_qc.any())
-    windows = 0
-    for _ in range(max_chunks):
+
+    def run_chunk(st):
         for _ in range(chunk):
             st = step(p, delay_table, dur_table, dmin, st, any_eq, any_forge)
-        windows += chunk
-        if bool(st.halted.all()):
-            break
+        return st
+
+    if stream is not None:
+        st, windows = S.stream_completion(run_chunk, p, st, chunk, max_chunks, stream)
+    else:
+        windows = 0
+        for _ in range(max_chunks):
+            st = run_chunk(st)
+            windows += chunk
+            if bool(st.halted.all()):
+                break
     run_to_completion.last_steps = windows
     return st
 

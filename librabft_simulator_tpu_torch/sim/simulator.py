@@ -4,7 +4,8 @@
 ``step`` processes exactly one event of every instance of a ``[B]`` batch
 (JAX vmaps a per-instance step; here the batch dim is written out), and
 ``run_to_completion`` is a chunked host loop over it with one
-``halted.all()`` read per chunk.
+``halted.all()`` read per chunk, or with ``stream=`` one fetch of the
+``[13]`` fleet digest per chunk (telemetry/stream.py).
 
 Event selection is the lexicographic argmin over (time asc, kind desc,
 stamp asc) of ``ops/select_events.py::select_queue_events``, which reads the
@@ -12,8 +13,12 @@ queue and timers in place: the hand-written CUDA kernel on the card, its
 plain version on the CPU.  Every entry point runs on ``cuda``
 unless the caller passes ``device="cpu"``.
 
-The planes of later slices raise ``NotImplementedError`` here (see
-:func:`check_slice`); nothing is ignored silently.
+``SimParams.telemetry`` (the metrics plane and flight recorder) and
+``SimParams.watchdog`` (the consensus watchdog) add their updates to the
+step when on; off, their leaves are zero-width and the step launches
+nothing for them.  The planes of later slices raise
+``NotImplementedError`` here (see :func:`check_slice`); nothing is ignored
+silently.
 """
 
 from __future__ import annotations
@@ -24,7 +29,6 @@ import torch
 from ..core import data_sync, node as node_ops, store as store_ops
 from ..core.types import (
     ADV_FIELDS,
-    FR_COLS,
     KIND_NOTIFY,
     KIND_REQUEST,
     KIND_RESPONSE,
@@ -47,6 +51,7 @@ from ..core.types import (
     unpack_payload,
 )
 from ..ops.select_events import select_queue_events
+from ..telemetry import plane as tplane, stream as tstream
 from ..utils import hashing as H
 from ..utils.quantile import TABLE_BITS
 from ..utils.xops import arange, const, needed, onehot, put, scatter_set, take, wset, zeros
@@ -62,8 +67,6 @@ RUN_MAX_CHUNKS = 400
 def check_slice(p: SimParams):
     """Raise for the SimParams planes that later slices of the port add."""
     later = [
-        ("telemetry", p.telemetry, "the telemetry-plane slice"),
-        ("watchdog", p.watchdog, "the telemetry-plane slice"),
         ("scenario", p.scenario, "the scenario/adversary-plane slice"),
         ("adversary", p.adversary, "the scenario/adversary-plane slice"),
         ("macro_k > 1", (p.macro_k or 1) > 1, "the sharded-runtime slice"),
@@ -135,7 +138,8 @@ def init_batch(p: SimParams, seeds, weights=None, byz_equivocate=None,
         n_events=z(b), n_msgs_sent=z(b), n_msgs_dropped=z(b), n_queue_full=z(b),
         trace_node=z(b, p.trace_cap), trace_round=z(b, p.trace_cap),
         trace_time=z(b, p.trace_cap), trace_count=z(b),
-        metrics=z(b, 0), flight=z(b, 0, FR_COLS), wd=z(b, 0),
+        metrics=tplane.init_plane(p, (b,), device), flight=tplane.init_flight(p, (b,), device),
+        wd=tstream.init_wd(p, (b,), device),
         sc_delay=z(b, 0), sc_commit=z(b, 0),
         adv_sched=z(b, 0, ADV_FIELDS), adv_link=z(b, 0, 0), adv_group=z(b, 0),
         adv_heal=z(b, 0),
@@ -471,9 +475,18 @@ def step(p: SimParams, delay_table, dur_table, st: SimState,
     else:
         trace_node, trace_round, trace_time = st.trace_node, st.trace_round, st.trace_time
 
+    planes = {}
+    if p.watchdog:
+        planes["wd"] = _watchdog_step(p, st, a, live, switched_r, queue.valid, cx_a, cx_f)
+    if p.telemetry:
+        planes["metrics"], planes["flight"] = _telemetry_step(
+            p, st, a, kind, clock, live, is_timer, is_notify, is_request, is_response,
+            switched_r, dropped, overflow, queue, pm_a, pm_f, s_f, cx_a, cx_f)
+
     m_a = onehot(st.timer_time, a)
     sent = torch.where(live, (go & ~overflow).sum(dim=1, dtype=I32), 0)
     return st.replace(
+        **planes,
         store=_node_write(st.store, s_a, s_f, m_a),
         pm=_node_write(st.pm, pm_a, pm_f, m_a),
         node=_node_write(st.node, nx_a, nx_f, m_a),
@@ -499,6 +512,98 @@ def step(p: SimParams, delay_table, dur_table, st: SimState,
     )
 
 
+def newest_commit(p: SimParams, cx):
+    """Per row of ``cx`` (one node per row): the (depth, tag, round) of the
+    newest committed entry, the round of the one before it, and whether
+    the two lie in one epoch (rounds restart at an epoch switch)."""
+    pos = torch.remainder((cx.commit_count - 1).clamp(min=0), p.commit_log)
+    pos2 = torch.remainder((cx.commit_count - 2).clamp(min=0), p.commit_log)
+    d_new = take(cx.log_depth, pos)
+    cpe = p.commands_per_epoch
+    same_epoch = (torch.div(d_new, cpe, rounding_mode="floor")
+                  == torch.div(take(cx.log_depth, pos2), cpe, rounding_mode="floor"))
+    return (d_new, take(cx.log_tag, pos), take(cx.log_round, pos),
+            take(cx.log_round, pos2), same_epoch)
+
+
+def _watchdog_step(p: SimParams, st: SimState, a, live, switched, queue_valid, cx_a, cx_f):
+    """The consensus watchdog's update for one event of every instance
+    (telemetry/stream.py WD_SLOTS): the liveness stall (events since the
+    handled node last advanced a round, one trip per threshold crossing),
+    queue saturation after this step's writes, the handled node's sync
+    jumps, and, at a commit, a round regression inside its own committed
+    chain and a conflicting entry at the same depth in another node's log
+    (the other nodes' rows are untouched by this event, so ``st.ctx`` is
+    current for them)."""
+    wd = st.wd
+    T = p.watchdog_stall_events
+    stall_ev0 = wd[:, tstream.WD_STALL_EV]
+    stall_ev = torch.where(switched, 0, stall_ev0 + live.to(I32))
+    stall_trip = (stall_ev0 < T) & (stall_ev >= T)
+    qsat = live & (queue_valid.sum(dim=1, dtype=I32) >= p.queue_cap)
+    sj_inc = torch.where(live, cx_f.sync_jumps - cx_a.sync_jumps, 0)
+    committed = live & (cx_f.commit_count > cx_a.commit_count)
+    d_new, t_new, r_new, r_prev, same_epoch = newest_commit(p, cx_f)
+    regress = committed & (cx_f.commit_count >= 2) & same_epoch & (r_new <= r_prev)
+    h = p.commit_log
+    ctx = st.ctx
+    entry_ok = arange(h, a.device) < ctx.commit_count.clamp(max=h).unsqueeze(-1)
+    others = arange(p.n_nodes, a.device) != a.unsqueeze(-1)
+    conflict = committed & (
+        others.unsqueeze(-1) & entry_ok
+        & (ctx.log_depth == d_new.reshape(-1, 1, 1))
+        & (ctx.log_tag != t_new.reshape(-1, 1, 1))).flatten(1).any(dim=1)
+    return torch.stack([
+        stall_ev,
+        wd[:, tstream.WD_STALL] + stall_trip.to(I32),
+        wd[:, tstream.WD_QUEUE_SAT] + qsat.to(I32),
+        wd[:, tstream.WD_SYNC_JUMP] + sj_inc,
+        wd[:, tstream.WD_SAFETY_CONFLICT] + conflict.to(I32),
+        wd[:, tstream.WD_ROUND_REGRESS] + regress.to(I32),
+    ], dim=1).to(I32)
+
+
+def _telemetry_step(p: SimParams, st: SimState, a, kind, clock, live, is_timer,
+                    is_notify, is_request, is_response, switched, dropped, overflow,
+                    queue, pm_a, pm_f, s_f, cx_a, cx_f):
+    """The metrics plane and flight recorder for one event of every
+    instance (telemetry/plane.py): event-kind counts, losses, sync jumps,
+    post-write queue high-water marks, the round-dwell and proposal-to-commit
+    latency histograms, and one flight row per live event at ring position
+    ``fr_count % flight_cap``.  Returns (metrics, flight)."""
+    n = p.n_nodes
+    m = st.metrics
+    m = tplane.bump(p, m, "ev_notify", when=is_notify)
+    m = tplane.bump(p, m, "ev_request", when=is_request)
+    m = tplane.bump(p, m, "ev_response", when=is_response)
+    m = tplane.bump(p, m, "ev_timer", when=live & is_timer)
+    m = tplane.bump(p, m, "drops", dropped.sum(dim=1, dtype=I32), when=live)
+    m = tplane.bump(p, m, "overflow", overflow.sum(dim=1, dtype=I32), when=live)
+    m = tplane.bump(p, m, "sync_jumps", cx_f.sync_jumps - cx_a.sync_jumps, when=live)
+    # Queue pressure after this step's writes.
+    depth_n = (queue.valid.unsqueeze(-1)
+               & (queue.receiver.unsqueeze(-1) == arange(n, a.device))).sum(dim=1, dtype=I32)
+    qtot = queue.valid.sum(dim=1, dtype=I32)
+    m = tplane.region_max(p, m, "node_depth_hwm", depth_n)
+    m = tplane.region_max(p, m, "queue_hwm", qtot)
+    # Round-switch latency: local-clock dwell in the round just left.
+    rlat = (pm_f.round_start - pm_a.round_start).clamp(min=0)
+    m = tplane.bump_hist(p, m, "round_lat_hist", rlat.unsqueeze(1), switched.unsqueeze(1))
+    # Proposal -> commit latency of the newest committed entry (global time).
+    committed = live & (cx_f.commit_count > cx_a.commit_count)
+    cfound, clat = tplane.commit_latency(p, s_f, cx_f, st.startup, clock)
+    m = tplane.bump_hist(p, m, "commit_lat_hist", clat.unsqueeze(1),
+                         (committed & cfound).unsqueeze(1))
+    m = tplane.bump(p, m, "commit_lat_miss", when=committed & ~cfound)
+    # Flight recorder: one row per live event.
+    frc = tplane.read(p, m, "fr_count")
+    row = torch.stack([kind.to(I32), a.to(I32), clock.to(I32),
+                       s_f.current_round.to(I32), qtot], dim=1)
+    flight = wset(st.flight, torch.remainder(frc, p.flight_cap), row, when=live)
+    m = tplane.bump(p, m, "fr_count", when=live)
+    return m, flight
+
+
 def select_instances(st, idx):
     """The instances ``idx`` of a batched SimState or PSimState, as copies
     (e.g. to compare a few instances of a card run with a CPU run; a lane
@@ -514,33 +619,59 @@ def tables(p: SimParams, device):
             torch.as_tensor(p.duration_table(), device=device))
 
 
+def stream_completion(run_chunk, p: SimParams, st, chunk: int, max_chunks: int, stream):
+    """The digest-poll host loop both engines' ``run_to_completion(stream=)``
+    share: ``run_chunk(st)`` runs ``chunk`` steps (windows); after each
+    chunk the ``[13]`` digest (telemetry/stream.py) is computed on the
+    device and fetched, once, and the halt check reads its slot 0, never
+    the ``[B]`` halted plane.  Every digest goes to ``stream``, whose
+    ``steps`` counts the steps (windows) run per instance, as in the JAX
+    package (one event per serial step: ``macro_k`` is not ported).  The
+    runtime ledger's spans are not ported.  Returns (state, steps run)."""
+    b_total = st.clock.shape[0]
+    steps = 0
+    for _ in range(max_chunks):
+        st = run_chunk(st)
+        steps += chunk
+        d = stream.record(tstream.compute_digest(p, st).cpu().numpy(), steps=steps)
+        if d["halted"] >= b_total:
+            break
+    return st, steps
+
+
 @torch.inference_mode()
 def run_to_completion(p: SimParams, st: SimState, chunk: int = RUN_CHUNK,
                       max_chunks: int = RUN_MAX_CHUNKS, batched: bool = False,
                       stream=None):
     """Host loop: run until every instance passes max_clock, ``chunk``
     events per instance between reads of ``halted`` (one host sync per
-    chunk).  ``batched`` is accepted for the JAX signature; the port's
-    state always carries the batch dim.  Returns the final state; the
-    number of batch steps taken is ``run_to_completion.last_steps``."""
+    chunk).  ``stream`` (a telemetry/stream.TimelineRecorder) switches the
+    loop to the digest contract of :func:`stream_completion`.  ``batched``
+    is accepted for the JAX signature; the port's state always carries the
+    batch dim.  Returns the final state; the number of batch steps taken
+    is ``run_to_completion.last_steps``."""
     del batched
-    if stream is not None:
-        raise NotImplementedError(
-            "run_to_completion(stream=) is not ported yet; it lands with the "
-            "telemetry-plane slice")
     check_slice(p)
     dev = st.clock.device
     delay_table, dur_table = tables(p, dev)
     # The Byzantine masks are constant over a run: read them once.
     any_eq = bool(st.byz_equivocate.any())
     any_forge = bool(st.byz_forge_qc.any())
-    steps = 0
-    for _ in range(max_chunks):
+
+    def run_chunk(st):
         for _ in range(chunk):
             st = step(p, delay_table, dur_table, st, any_eq, any_forge)
-        steps += chunk
-        if bool(st.halted.all()):
-            break
+        return st
+
+    if stream is not None:
+        st, steps = stream_completion(run_chunk, p, st, chunk, max_chunks, stream)
+    else:
+        steps = 0
+        for _ in range(max_chunks):
+            st = run_chunk(st)
+            steps += chunk
+            if bool(st.halted.all()):
+                break
     run_to_completion.last_steps = steps
     return st
 

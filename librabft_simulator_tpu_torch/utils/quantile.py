@@ -1,6 +1,7 @@
-"""Integer quantile tables for random-delay distributions: the port's own
-copy of the table builders of ``librabft_simulator_tpu/utils/quantile.py``
-(numpy only; the tests hold both copies equal).
+"""Integer quantile tables for random-delay distributions and the latency
+histograms' buckets: the port's own copy of the table builders and the
+histogram helpers of ``librabft_simulator_tpu/utils/quantile.py`` (numpy
+only; the tests hold both copies equal).
 
 The reference simulator samples network delays from a LogNormal on the host
 (bft-lib/src/simulator.rs:98-107).  Here distributions are compiled on the
@@ -60,6 +61,44 @@ def constant_table(value: int) -> np.ndarray:
 def sample_from_table_np(table: np.ndarray, u32: int) -> int:
     """Host/oracle-side sampling; the JAX side is table[u >> 22] inline."""
     return int(table[(int(u32) & 0xFFFFFFFF) >> (32 - TABLE_BITS)])
+
+
+# Latencies as fixed-width geometric histograms: bucket b holds samples in
+# [edges[b-1], edges[b]) with edges 1, 2, 4, ... (powers of two, so the
+# device buckets a sample with a few integer compares); the last bucket is
+# open-ended.
+HIST_BUCKETS = 16
+
+
+def histogram_edges(n_buckets: int = HIST_BUCKETS) -> np.ndarray:
+    """Ascending bucket boundaries [1, 2, 4, ...] of length n_buckets - 1.
+
+    bucket(x) = #edges <= x  (i.e. ``np.searchsorted(edges, x, "right")``),
+    so bucket 0 is x < 1 and the last bucket is open-ended."""
+    return (2 ** np.arange(n_buckets - 1)).astype(np.int32)
+
+
+def bucket_np(x, n_buckets: int = HIST_BUCKETS) -> np.ndarray:
+    """Host-side bucketing; the device's ``sum(x >= edges)`` exactly."""
+    edges = histogram_edges(n_buckets)
+    return np.searchsorted(edges, np.asarray(x), side="right").astype(np.int64)
+
+
+def histogram_quantile(counts, q: float) -> tuple[int, int]:
+    """(lo, hi) bucket bounds containing the q-th sample of a histogram (the
+    ceil(q * total)-th sample).  (-1, -1) if empty; ``hi`` of the
+    open-ended last bucket is INT32_MAX.  The geometric buckets bound the
+    true quantile rather than estimate it."""
+    counts = np.asarray(counts, np.int64)
+    total = int(counts.sum())
+    if total == 0:
+        return (-1, -1)
+    rank = max(int(np.ceil(q * total)), 1)
+    b = int(np.searchsorted(np.cumsum(counts), rank))
+    edges = histogram_edges(len(counts))
+    lo = int(edges[b - 1]) if b > 0 else 0
+    hi = int(edges[b]) if b < len(edges) else 2**31 - 1
+    return (lo, hi)
 
 
 def make_table(kind: str, **kw) -> np.ndarray:

@@ -4,6 +4,7 @@ import ctypes
 import gc
 
 import jax
+import numpy as np
 import pytest
 
 _released_once = False
@@ -40,3 +41,26 @@ def import_torch():
     torch = pytest.importorskip("torch")
     torch.set_num_threads(1)
     return torch
+
+
+def port_byz_fleet(engine, p, seeds, silent_i, silent_nodes, doctor_i):
+    """tests/test_stream.py's ``byz_fleet_state`` on the port (CPU): the
+    nodes ``silent_nodes`` of instance ``silent_i`` are silent, and
+    instance ``doctor_i``'s node 1 holds a planted committed entry (depth 1,
+    a foreign tag, round 999) as ``doctor_ctx`` plants it."""
+    silent = np.zeros((len(seeds), p.n_nodes), bool)
+    silent[silent_i, list(silent_nodes)] = True
+    st = engine.init_batch(p, seeds, byz_silent=silent, device="cpu")
+    cx = st.ctx
+
+    def planted(x, idx, v):
+        x = x.clone()
+        x[idx] = v
+        return x
+
+    i = doctor_i
+    return st.replace(ctx=cx.replace(
+        commit_count=planted(cx.commit_count, (i, 1), 1),
+        log_depth=planted(cx.log_depth, (i, 1, 0), 1),
+        log_tag=planted(cx.log_tag, (i, 1, 0), int(np.uint32(0xDEADBEEF).view(np.int32))),
+        log_round=planted(cx.log_round, (i, 1, 0), 999)))

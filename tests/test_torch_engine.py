@@ -12,6 +12,8 @@ simulator.py) against the references on the CPU:
 Port runs use a 32-event chunk: halted instances are exact no-ops, so the
 final state does not depend on the chunk."""
 
+import re
+
 import jax
 import numpy as np
 import pytest
@@ -124,13 +126,13 @@ def test_against_oracle_edge_shapes(case):
 
 
 def test_later_slices_raise():
-    for kw in (dict(telemetry=True), dict(adversary=True), dict(macro_k=4),
-               dict(wrap="device")):
+    for kw in (dict(scenario=True), dict(adversary=True), dict(macro_k=4),
+               dict(wrap="device"), dict(mp_authors=True)):
         with pytest.raises(NotImplementedError):
             S.init_batch(SimParams(**kw), [0], device="cpu")
-    st = S.init_batch(SimParams(), [0], device="cpu")
-    with pytest.raises(NotImplementedError):
-        S.run_to_completion(SimParams(), st, stream=object())
+    # The telemetry and watchdog planes are ported: they allocate their leaves.
+    st = S.init_batch(SimParams(telemetry=True, watchdog=True), [0], device="cpu")
+    assert st.metrics.shape[1] > 0 and st.wd.shape == (1, 6)
 
 
 def test_skipping_masked_work_is_exact(monkeypatch):
@@ -157,7 +159,7 @@ def test_skipping_masked_work_is_exact(monkeypatch):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
-def test_cli_flags_match_jax(tmp_path):
+def test_cli_flags_match_jax(tmp_path, capsys):
     from librabft_simulator_tpu import main as jax_main
     from librabft_simulator_tpu_torch import main as port_main
 
@@ -170,7 +172,14 @@ def test_cli_flags_match_jax(tmp_path):
     assert pf == jf
     assert port_main.build_parser().parse_args([]).device == "cuda"
     short = ["--device", "cpu", "--nodes", "4", "--max_clock", "40"]
+    capsys.readouterr()
     assert port_main.main(short + ["--byzantine_f", "1"])["safe_fraction"] == 1.0
+    # At --instances 1 the commit line is the batched [1, N] list, as the JAX
+    # CLI prints it (librabft_simulator_tpu/main.py).
+    line = [ln for ln in capsys.readouterr().err.splitlines()
+            if ln.startswith("Commands executed per node: ")]
+    assert len(line) == 1
+    assert re.fullmatch(r"Commands executed per node: \[\[\d+(, \d+){3}\]\]", line[0])
     out = tmp_path / "out"
     port_main.main(short + ["--output_data_files", str(out)])
     assert sorted(f.name for f in out.iterdir()) == [

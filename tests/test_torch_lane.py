@@ -194,8 +194,7 @@ def test_lane_state_round_trip():
 
 
 def test_lane_rejects_what_it_does_not_run():
-    for kw in (dict(telemetry=True), dict(watchdog=True), dict(scenario=True),
-               dict(adversary=True), dict(shuffle_receivers=True)):
+    for kw in (dict(scenario=True), dict(adversary=True), dict(shuffle_receivers=True)):
         with pytest.raises(NotImplementedError):
             P.init_batch(SimParams(**kw), [0], device="cpu")
     with pytest.raises(ValueError, match="serial-engine knob"):
@@ -203,8 +202,9 @@ def test_lane_rejects_what_it_does_not_run():
     st = P.init_batch(SimParams(), [0], device="cpu")
     with pytest.raises(ValueError, match="serial-engine knob"):
         P.run_to_completion(SimParams(macro_k=4), st)
-    with pytest.raises(NotImplementedError):
-        P.run_to_completion(SimParams(), st, stream=object())
+    # The telemetry and watchdog planes are ported (tests/test_torch_telemetry.py).
+    st = P.init_batch(SimParams(telemetry=True, watchdog=True), [0], device="cpu")
+    assert st.metrics.shape[1] > 0 and st.wd.shape == (1, 6)
 
 
 def _jax_sweep_parser():
@@ -241,10 +241,13 @@ def test_sweep_configs_and_flags_match_jax():
     assert flags(sweeps.build_parser(), {"help", "device"}) == flags(
         _jax_sweep_parser(), {"help", "platform"})
     assert sweeps.build_parser().parse_args([]).device == "cuda"
-    for argv in (["--dp", "2"], ["--telemetry"], ["--watchdog"],
-                 ["--stream-out", "x.ndjson"], ["--macro-k", "4"]):
+    for argv in (["--dp", "2"], ["--macro-k", "4"]):
         with pytest.raises(NotImplementedError):
             sweeps.main(argv + ["--device", "cpu"])
+    # The plane and stream flags are ported (tests/test_torch_telemetry.py).
+    args = sweeps.build_parser().parse_args(
+        ["--telemetry", "--watchdog", "--stream-out", "x.ndjson"])
+    assert args.telemetry and args.watchdog and args.stream_out == "x.ndjson"
 
 
 def test_sweep_run_config_on_each_engine():
