@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
     python3 chip_smoke.py [--max_clock 300] [--byz_clock 150] [--c3_clock 30] [--c5_clock 65]
+                          [--sc_clock 100 180] [--sc5_clock 60 70] [--sc5_clock3 85 95]
 
 Phases, each printed with its seconds:
   1. card: nvidia-smi name and power limit, torch's device name;
@@ -63,12 +64,48 @@ Phases, each printed with its seconds:
  11. config #5 on the lane engine with both planes and the stream: ms per
      window beside phase 9's and, in turns, off and on; peak memory, the
      inbox overflow, high-water mark and saturation counts, the counter
-     invariants, three instances equal a CPU run in every leaf;
+     invariants, three instances equal a CPU run in every leaf.  Phases 9
+     and 11 fail unless the fleet commits and its inboxes overflow, and
+     phase 11 unless the watchdog's stall and queue-saturation detectors
+     trip: a horizon too short for these paths fails, it does not pass
+     quietly;
  12. a checkpoint round trip on the card: phase 10's fleet, saved
      (sim/checkpoint.py) after its first chunk, is loaded on the card and
      resumed, and must equal phase 10's run, which went on in memory, in
      every leaf; the checkpoint loaded on the CPU equals the card's state it
-     was saved from.
+     was saved from;
+ 13. the scenario and adversary planes on the serial engine at config #2's
+     width (n=4, queue_cap 64, B=10,000, adv_windows 4): a fleet built by
+     serve/scenario.init_specs from 10,000 ScenarioSpecs that cycle the
+     delay family (uniform / lognormal / pareto), the 2- and 3-chain rule
+     and a 0 or 5% drop rate, each with a per-slot max_clock (--sc_clock,
+     the cut) and an attack from dsl.sample_program (f_max 1); the static
+     Byzantine schedules go only on slots whose program has no Byzantine
+     target.  Checks: launches = batch steps; both chains commit; picked
+     slots (each family, both chains, a partition, a link matrix, an epoch
+     and an events window, the slot with the most events, one at the top
+     of --sc_clock, and a 3-chain and a 2-chain slot that committed) equal
+     a CPU run of the same fleet in every leaf and their dedicated static
+     runs on the CPU in every leaf but sc_*; the adv_* leaves are
+     unchanged by the run; the device safety check with per-slot honest
+     masks equals its reference on every slot.  Prints the safe fraction
+     per commit chain, ms per batch step beside phase 4's, and kernels per
+     step under torch.profiler (4 steps) with the run's Byzantine flags
+     and with them off, beside phase 6's;
+ 14. the same kind of fleet on the lane engine at config #5's shapes (n=16,
+     inbox 256, 8 lanes, drain 4, B=10,000; families, so d_min differs by
+     slot; chains 2 and 3; sample_program at n=16 with f_max 5, link
+     matrices and partitions; per-slot max_clock from --sc5_clock on the
+     2-chain slots and --sc5_clock3 on the 3-chain ones, where config #5
+     makes its first commits on each rule), with the telemetry plane on
+     for its counter invariants: launches = drain x windows, the
+     invariants on every instance, the adv_* leaves unchanged,
+     both chains commit, the device safety check equals its reference on
+     every slot, and a committed 3-chain slot, a committed 2-chain slot and
+     the slot with the most events equal a CPU run in every leaf; ms per
+     window beside phase 9's, windows and peak memory; kernels per window
+     under torch.profiler (1 window after 2) of this fleet and of config #5
+     with the planes off.
 
 Only the horizon (max_clock) of a main path is cut, to fit the time limit;
 each cut is printed.  Every path is driven with the launch counts set to 0
@@ -111,6 +148,7 @@ PROFILE_WINDOWS = 1
 FULL_CLOCK = 1000              # the BASELINE configs' horizon
 LANE_PICKS = 3                 # lane instances re-run on the CPU
 DOCTOR_I = 3                   # phase 10's instance with a planted conflicting commit
+FAMILIES = ("uniform", "lognormal", "pareto")
 
 
 def phase(name):
@@ -326,7 +364,7 @@ def profile_device(step, st, steps, unit, warm=4):
     """``steps`` calls of ``step`` (one batch step or one window) after
     ``warm`` more, under torch.profiler: wall and device time per call, the
     device's busy share, launches per call and the kernels that take the
-    most device time."""
+    most device time.  Returns the state after the last call."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.no_grad():
@@ -351,13 +389,14 @@ def profile_device(step, st, steps, unit, warm=4):
           f"{wall / steps * 1e3:.3f} ms/{unit}")
     if not rows:
         print("   device time: not measured (the profiler saw no device kernels)")
-        return
+        return st
     dev = sum(r[0] for r in rows) / 1e3 / steps
     launches = sum(r[1] for r in rows) / steps
     print(f"   device kernel time {dev:.3f} ms/{unit}, busy share "
           f"{dev / (wall / steps * 1e3):.4f}, kernels launched {launches:.1f}/{unit}")
     for dev_us, count, key in sorted(rows, reverse=True)[:8]:
         print(f"   {dev_us / 1e3 / steps:9.4f} ms/{unit} {count / steps:8.1f}/{unit}  {key[:90]}")
+    return st
 
 
 def lane_inputs(rows, ic, seed, device):
@@ -424,7 +463,16 @@ def main(argv=None):
                     help="horizon of config #2 (the BASELINE 1000, cut to fit the time limit)")
     ap.add_argument("--byz_clock", type=int, default=150, help="horizon of config #4")
     ap.add_argument("--c3_clock", type=int, default=30, help="horizon of config #3")
-    ap.add_argument("--c5_clock", type=int, default=65, help="horizon of config #5")
+    ap.add_argument("--c5_clock", type=int, default=65,
+                    help="horizon of config #5 (phases 9 and 11 fail below its first "
+                         "commits and overflow)")
+    ap.add_argument("--sc_clock", type=int, nargs=2, default=(100, 180),
+                    help="range of the per-slot horizons of phase 13's fleet")
+    ap.add_argument("--sc5_clock", type=int, nargs=2, default=(60, 70),
+                    help="range of the per-slot horizons of phase 14's 2-chain slots")
+    ap.add_argument("--sc5_clock3", type=int, nargs=2, default=(85, 95),
+                    help="range of the per-slot horizons of phase 14's 3-chain slots "
+                         "(the 3-chain rule commits a round later)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -659,6 +707,20 @@ def main(argv=None):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    t = phase("13. scenario and adversary planes, serial (config #2's width)")
+    p13 = dataclasses.replace(p, scenario=True, adversary=True, adv_windows=4)
+    by_path["config #2 serial, scenario and adversary"] = serial_scenario_phase(
+        p13, b, {3: args.sc_clock, 2: args.sc_clock}, sel, to_reference, serial_ms)
+    done("scenario and adversary planes, serial (config #2's width)", t)
+
+    t = phase("14. scenario and adversary planes, lanes (config #5's shapes)")
+    p14 = dataclasses.replace(p5, scenario=True, adversary=True, adv_windows=4,
+                              telemetry=True)
+    by_path["config #5 lanes, scenario and adversary"] = lane_scenario_phase(
+        p14, 10000, {2: args.sc5_clock, 3: args.sc5_clock3}, sel, to_reference,
+        window_ms["config #5"])
+    done("scenario and adversary planes, lanes (config #5's shapes)", t)
+
     kernels = []
     for name in ("select_queue_events", "select_events"):
         counts = by_path if name == "select_queue_events" else {}
@@ -671,6 +733,249 @@ def main(argv=None):
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def fleet_specs(p, b, clocks, f_max, statics):
+    """``b`` ScenarioSpecs for the scenario phases: slot i cycles the delay
+    family, then the commit chain, then the drop rate; its horizon lies in
+    ``clocks[chain]``, a (lo, hi) range per commit chain; its attack is
+    ``sample_program(p, Random(i), horizon, f_max)``.  With ``statics``,
+    slots whose program has no Byzantine target cycle the static schedules
+    (one author), so no slot has more than one Byzantine author when f_max
+    is 1."""
+    import random
+
+    from librabft_simulator_tpu_torch.adversary import dsl
+    from librabft_simulator_tpu_torch.serve import scenario as sc
+    from librabft_simulator_tpu_torch.sim.byzantine import SCHEDULES
+
+    specs = []
+    for i in range(b):
+        chain = (3, 2)[(i // 3) % 2]
+        lo, hi = clocks[chain]
+        mc = lo + (i * 7919) % (hi - lo + 1)
+        prog = dsl.sample_program(p, random.Random(i), horizon=mc, f_max=f_max)
+        kind = "honest"
+        if statics and not dsl.byz_targets(prog):
+            kind = SCHEDULES[(i // 12) % len(SCHEDULES)]
+        specs.append(sc.ScenarioSpec(
+            delay_kind=FAMILIES[i % 3], commit_chain=chain,
+            drop_prob=(0.0, 0.05)[(i // 6) % 2], max_clock=mc, byz_kind=kind,
+            byz_f=0 if kind == "honest" else 1, seed=i, attack=prog.to_dict()))
+    return specs
+
+
+def clock_ranges(clocks):
+    return ", ".join(f"[{lo}, {hi}] ({c}-chain)" for c, (lo, hi) in sorted(clocks.items()))
+
+
+def coverage_picks(specs, events, commits):
+    """The slots the card-vs-CPU checks compare: for each feature the slot
+    of the least horizon that has it (each delay family, both chains, a
+    partition, a link matrix, an epoch window, an events window, a static
+    schedule, a drop rate), then the deep ones: the slot with the most
+    ``events``, the busiest slot at the top horizon, and the 3-chain and
+    2-chain slots with the most ``commits``.  Returns (slots, feature
+    names)."""
+    feats = {f"family {f}": (lambda s, f=f: s.delay_kind == f) for f in FAMILIES}
+    feats.update({
+        "2-chain": lambda s: s.commit_chain == 2,
+        "3-chain": lambda s: s.commit_chain == 3,
+        "partition": lambda s: "partition" in s.attack,
+        "link matrix": lambda s: "link_delay" in s.attack,
+        "epoch window": lambda s: any(w["mode"] == "epoch" for w in s.attack["windows"]),
+        "events window": lambda s: any(w["mode"] == "events" for w in s.attack["windows"]),
+        "static schedule": lambda s: s.byz_kind != "honest",
+        "drop": lambda s: s.drop_prob > 0,
+    })
+    order = sorted(range(len(specs)), key=lambda i: (specs[i].max_clock, i))
+    picks = []
+    for pred in feats.values():
+        if not any(pred(specs[i]) for i in picks):
+            picks.append(next(i for i in order if pred(specs[i])))
+    top = max(s.max_clock for s in specs)
+    chains = np.asarray([s.commit_chain for s in specs])
+    deep = {"most events": int(np.argmax(events)),
+            f"top horizon {top}": max((i for i, s in enumerate(specs) if s.max_clock == top),
+                                      key=lambda i: events[i])}
+    for c in (3, 2):
+        deep[f"committed {c}-chain"] = int(np.argmax(np.where(chains == c, commits, -1)))
+    picks += deep.values()
+    return sorted(set(picks)), list(feats) + list(deep)
+
+
+def adv_leaves(st):
+    return {k: getattr(st, k).clone() for k in ("adv_sched", "adv_link", "adv_group", "adv_heal")}
+
+
+def check_adv_unchanged(before, st, label):
+    for k, v in before.items():
+        if not torch.equal(v, getattr(st, k)):
+            raise AssertionError(f"{label}: the run wrote {k}")
+    print(f"   {label}: the adv_* leaves are unchanged by the run "
+          f"({', '.join(f'{k} {list(v.shape)}' for k, v in before.items())})")
+
+
+def safety_lines(label, specs, safe, cc):
+    """Per commit chain: the slots, their safe fraction and commits; fails
+    unless each chain committed somewhere (else its rule went untested)."""
+    chains = np.asarray([s.commit_chain for s in specs])
+    parts = []
+    for c in (3, 2):
+        on = chains == c
+        if not (cc[on] > 0).any():
+            raise AssertionError(f"{label}: no {c}-chain slot committed")
+        parts.append(f"{c}-chain {safe[on].mean():.4f} ({int(on.sum())} slots, "
+                     f"{int((cc[on] > 0).any(axis=1).sum())} committed, mean commits/node "
+                     f"{cc[on].mean():.3f})")
+    print(f"   device check_safety == check_safety_reference on all {len(specs)} slots "
+          f"(per-slot honest masks); safe fraction: {', '.join(parts)}")
+
+
+def serial_scenario_phase(p, b, clocks, sel, to_reference, serial_ms):
+    """Phase 13 (see the module docstring); returns the select launches."""
+    from librabft_simulator_tpu_torch.serve import scenario as sc
+    from librabft_simulator_tpu_torch.sim import byzantine as B
+    from librabft_simulator_tpu_torch.sim import simulator as S
+
+    t0 = time.perf_counter()
+    specs = fleet_specs(p, b, clocks, f_max=1, statics=True)
+    honest = sc.honest_masks(p, specs)
+    st0 = sc.init_specs(p, specs, device="cuda")
+    torch.cuda.synchronize()
+    print(f"   fleet: n={p.n_nodes} queue_cap={p.queue_cap} B={b} adv_windows={p.adv_windows}; "
+          f"cut: per-slot max_clock in {clock_ranges(clocks)} (BASELINE 1000); "
+          f"{sum(bool(s.attack['windows']) for s in specs)} slots with windows, "
+          f"{sum('partition' in s.attack for s in specs)} partitions, "
+          f"{sum('link_delay' in s.attack for s in specs)} link matrices, "
+          f"{sum(s.byz_kind != 'honest' for s in specs)} static schedules, "
+          f"{int((~honest).any(axis=1).sum())} slots with a Byzantine author; specs, rows "
+          f"and init_specs on the card {time.perf_counter() - t0:.3f} s")
+    before = adv_leaves(st0)
+    flags = S.byz_flags(p, st0)
+    torch.cuda.reset_peak_memory_stats()
+    # A halt read every 64 steps: the fleet runs as long as its busiest slot.
+    st, wall, launches = counted_run(sel, lambda: S.run_to_completion(
+        p, st0, chunk=64, max_chunks=1600, batched=True))
+    steps = S.run_to_completion.last_steps
+    fleet_line(st, wall, steps, "batch step")
+    ev = st.n_events.cpu().numpy()
+    print(f"   ms per batch step: planes on {wall / steps * 1e3:.3f}, config #2 planes off "
+          f"{serial_ms:.3f} (phase 4); launches {launches} (batch steps {steps}); "
+          f"byz_flags {flags}; events per slot: median {int(np.median(ev))}, max "
+          f"{int(ev.max())} (slot {int(ev.argmax())}: {specs[int(ev.argmax())]})")
+    if (not bool(st.halted.all()) or launches["select_events"]
+            or launches["select_queue_events"] != steps):
+        raise AssertionError(f"phase 13: launches={launches} steps={steps}")
+    check_adv_unchanged(before, st, "phase 13")
+    del st0
+    safe = B.check_safety(st, honest)
+    if not np.array_equal(safe, B.check_safety_reference(st, honest)):
+        raise AssertionError("phase 13: device safety check != reference")
+    cc = st.ctx.commit_count.cpu().numpy()
+    safety_lines("phase 13", specs, safe, cc)
+
+    t = time.perf_counter()
+    picks, feats = coverage_picks(specs, ev, cc.sum(axis=1))
+    if len(picks) < 6:
+        raise AssertionError(f"phase 13: {len(picks)} picked slots, want at least 6")
+    gpu = to_reference(S.select_instances(st, picks))
+    del st
+    cpu = to_reference(S.run_to_completion(
+        p, sc.init_specs(p, [specs[i] for i in picks], device="cpu"), chunk=32))
+    leaves_equal(cpu, gpu, "phase 13 card vs CPU")
+    print(f"   card vs CPU: slots {picks} (horizons {[specs[i].max_clock for i in picks]}, "
+          f"events {ev[picks].tolist()}, commits {cc[picks].sum(axis=1).tolist()}; covering "
+          f"{', '.join(feats)}) equal in every leaf ({len(gpu)} leaves), "
+          f"{time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    for j, i in enumerate(picks):
+        spec = specs[i]
+        pi = spec.to_params(p)
+        eq, silent, forge = spec.byz_masks(p)
+        ded = S.init_batch(pi, [spec.seed], byz_equivocate=eq, byz_silent=silent,
+                           byz_forge_qc=forge, device="cpu")
+        ded = to_reference(S.run_to_completion(pi, spec.attack_program().install(pi, ded),
+                                               chunk=32))
+        leaves_equal({k: v for k, v in ded.items() if not k.startswith("sc_")},
+                     {k: v[j:j + 1] for k, v in gpu.items() if not k.startswith("sc_")},
+                     f"phase 13 slot {i} vs its dedicated run")
+    print(f"   each picked slot equals its dedicated static run (to_params + install) on "
+          f"the CPU in every leaf but sc_* ({time.perf_counter() - t:.3f} s)")
+    dt, du = S.tables(p, "cuda")
+    fleet = sc.init_specs(p, specs, device="cuda")  # the second profile goes on from the first's
+    for fl in (flags, (False, False)):
+        print(f"   profile, byz_flags {fl} (beside phase 6's, planes off):")
+        fleet = profile_device(lambda x: S.step(p, dt, du, x, *fl), fleet, PROFILE_STEPS,
+                               "batch step")
+    return launches["select_queue_events"]
+
+
+def lane_scenario_phase(p, b, clocks, sel, to_reference, window_ms):
+    """Phase 14 (see the module docstring); returns the select launches."""
+    from librabft_simulator_tpu_torch.serve import scenario as sc
+    from librabft_simulator_tpu_torch.sim import byzantine as B
+    from librabft_simulator_tpu_torch.sim import parallel_sim as P
+    from librabft_simulator_tpu_torch.sim import simulator as S
+
+    t0 = time.perf_counter()
+    specs = fleet_specs(p, b, clocks, f_max=5, statics=False)
+    honest = sc.honest_masks(p, specs)
+    st0 = sc.init_specs(p, specs, engine=P, device="cuda")
+    d_min = st0.sc_delay.amin(dim=1).clamp(min=1)
+    print(f"   fleet: n={p.n_nodes} inbox={P.inbox_cap(p)} lanes={P.lanes_of(p)} "
+          f"drain={P.drain_of(p)} B={b} telemetry={p.telemetry}; cut: per-slot max_clock in "
+          f"{clock_ranges(clocks)} (BASELINE 1000); per-slot d_min in "
+          f"{sorted(set(d_min.tolist()))}; {sum('partition' in s.attack for s in specs)} "
+          f"partitions, {sum('link_delay' in s.attack for s in specs)} link matrices, "
+          f"{int((~honest).any(axis=1).sum())} slots with Byzantine windows (at most "
+          f"{int((~honest).sum(axis=1).max())} authors); init {time.perf_counter() - t0:.3f} s")
+    before = adv_leaves(st0)
+    flags = S.byz_flags(p, st0)
+    torch.cuda.reset_peak_memory_stats()
+    st, wall, launches = counted_run(sel, lambda: P.run_to_completion(p, st0, batched=True))
+    windows = P.run_to_completion.last_steps
+    fleet_line(st, wall, windows, "window")
+    k = P.drain_of(p)
+    print(f"   ms per window: planes on {wall / windows * 1e3:.3f}, config #5 planes off "
+          f"{window_ms:.3f} (phase 9); launches {launches} (windows {windows} x drain {k} = "
+          f"{windows * k})")
+    if (not bool(st.halted.all()) or launches["select_events"]
+            or launches["select_queue_events"] != k * windows):
+        raise AssertionError(f"phase 14: launches {launches}, windows {windows}")
+    del st0
+    plane_checks(p, st, "phase 14")
+    check_adv_unchanged(before, st, "phase 14")
+    safe = B.check_safety(st, honest)
+    if not np.array_equal(safe, B.check_safety_reference(st, honest)):
+        raise AssertionError("phase 14: device safety check != reference")
+    cc = st.ctx.commit_count.cpu().numpy()
+    safety_lines("phase 14", specs, safe, cc)
+    t = time.perf_counter()
+    ev = st.n_events.cpu().numpy()
+    chains = np.asarray([s.commit_chain for s in specs])
+    # The slots with the most commits on each chain, and the busiest slot.
+    picks = [int(np.argmax(np.where(chains == c, cc.sum(axis=1), -1))) for c in (3, 2)]
+    picks = sorted({*picks, int(ev.argmax())} | ({b - 1} if int(ev.argmax()) in picks else set()))
+    gpu = to_reference(S.select_instances(st, picks))
+    del st
+    cpu = to_reference(P.run_to_completion(
+        p, sc.init_specs(p, [specs[i] for i in picks], engine=P, device="cpu")))
+    leaves_equal(cpu, gpu, "phase 14 card vs CPU")
+    print(f"   card vs CPU: slots {picks} (chains {chains[picks].tolist()}, events "
+          f"{ev[picks].tolist()}, commits {cc[picks].sum(axis=1).tolist()}) equal in every "
+          f"leaf ({len(gpu)} leaves), {time.perf_counter() - t:.3f} s")
+    dt, du = S.tables(p, "cuda")
+    p_off = dataclasses.replace(p, scenario=False, adversary=False, telemetry=False)
+    for label, pw, fl in (("this fleet, byz_flags " + str(flags), p, flags),
+                          ("config #5 as phase 9, planes off", p_off, (False, False))):
+        print(f"   profile, {label}:")
+        fleet = (sc.init_specs(p, specs, engine=P, device="cuda") if pw is p
+                 else P.init_batch(pw, np.arange(b, dtype=np.uint32), device="cuda"))
+        profile_device(lambda x: P.step(pw, dt, du, P.d_min_of(pw), x, *fl), fleet,
+                       PROFILE_WINDOWS, "window", warm=2)
+        del fleet
+    return launches["select_queue_events"]
 
 
 def fsweep_phase(args, sel, b):
@@ -761,6 +1066,8 @@ def lane_phase(name, p, b, sel, P, to_reference, profile, stream=None):
         raise AssertionError(f"{name}: no events")
     if p.telemetry:
         plane_checks(p, st, name)
+    if name == "config #5":
+        require_paths(p, st, name)
 
     t = time.perf_counter()
     rng = np.random.default_rng(1)
@@ -778,6 +1085,23 @@ def lane_phase(name, p, b, sel, P, to_reference, profile, stream=None):
                        P.init_batch(p, seeds, device="cuda"), PROFILE_WINDOWS, "window",
                        warm=2)
     return launches["select_queue_events"], wall / windows * 1e3
+
+
+def require_paths(p, st, label):
+    """Config #5 drives the lane engine's 2-chain commit rule and its inbox
+    overflow, and with the watchdog on its stall and queue-saturation
+    detectors: fail if the run left any of them at 0 (a horizon too short
+    for them)."""
+    got = {"commits": int(st.ctx.commit_count.sum()), "inbox-full": int(st.n_inbox_full.sum())}
+    if p.watchdog:
+        from librabft_simulator_tpu_torch.telemetry import stream
+        tot = dict(zip(stream.WD_SLOTS, st.wd.sum(dim=0).tolist()))
+        got.update({"watchdog stall": tot["stall"], "watchdog queue_sat": tot["queue_sat"]})
+    zero = [k for k, v in got.items() if v <= 0]
+    if zero:
+        raise AssertionError(f"{label}: {', '.join(zero)} at 0 by max_clock {p.max_clock}: "
+                             f"the run did not drive these paths ({got})")
+    print(f"   {label}: paths driven: {json.dumps(got)}")
 
 
 def planes_turns(step, p, st, warm, seg, unit):

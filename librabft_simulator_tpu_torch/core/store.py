@@ -199,22 +199,31 @@ def second_previous_round(p: SimParams, s: Store, blk_round, blk_var):
     return torch.where(at_initial | ~found, s.initial_round, pr2)
 
 
-def _check_commit_chain(p: SimParams):
-    if not isinstance(p.commit_chain, int):
-        raise NotImplementedError(
-            "a traced per-slot commit_chain belongs to the scenario-plane slice")
-
-
 def vote_committed_state(p: SimParams, s: Store, blk_round, blk_var, prev=None):
     """(valid, depth, tag, undeterminable) of the state the commit rule would
     finalize if a QC formed on this block, for ``commit_chain`` C: the C-1
     QCs below the block must have contiguous rounds; the oldest one's state
     is committed.  ``undeterminable``: the walk touched a state-sync anchor.
     ``prev`` is ``prev_qc_of_block(p, s, blk_round, blk_var)`` when the
-    caller has it."""
-    _check_commit_chain(p)
+    caller has it.
+
+    ``p.commit_chain`` may be a per-row tensor of 2s and 3s
+    (types.TracedParams): the walk then runs to the deeper rule once and
+    each row selects its own predicate, state and anchor test."""
     C = p.commit_chain
     found0, pr, pv = prev or prev_qc_of_block(p, s, blk_round, blk_var)
+    if not isinstance(C, int):
+        valids, rounds, vars_, hits = qc_walk_back(
+            p, s, found0 & (pv >= 0), pr, pv.clamp(min=0), 2)
+        is3 = C >= 3
+        ok2 = valids[0] & (blk_round == rounds[0] + 1)
+        ok = torch.where(is3, ok2 & valids[1] & (rounds[0] == rounds[1] + 1), ok2)
+        touched2 = (found0 & (pv < 0)) | hits[0]
+        undet = s.anchored & torch.where(is3, touched2 | hits[1], touched2)
+        d2, t2 = _qc_state(p, s, rounds[0], vars_[0])
+        d3, t3 = _qc_state(p, s, rounds[1], vars_[1])
+        d, t = torch.where(is3, d3, d2), torch.where(is3, t3, t2)
+        return ok, torch.where(ok, d, 0), torch.where(ok, t, 0), undet
     valids, rounds, vars_, hits = qc_walk_back(
         p, s, found0 & (pv >= 0), pr, pv.clamp(min=0), C - 1)
     ok = None
@@ -253,14 +262,22 @@ def compute_state(p: SimParams, s: Store, blk_round, blk_var, prev=None):
 
 def update_commit_chain(p: SimParams, s: Store, qc_round, qc_var, when=None) -> Store:
     """The C-chain commit rule applied after inserting the QC at (qc_round,
-    qc_var); ``when`` gates the update per instance."""
-    _check_commit_chain(p)
+    qc_var); ``when`` gates the update per instance.  A per-row
+    ``commit_chain`` tensor walks 3 hops once and selects per row, as in
+    vote_committed_state."""
     C = p.commit_chain
-    valids, rounds, _, _ = qc_walk_back(p, s, True, qc_round, qc_var, C)
-    ok = valids[0]
-    for i in range(1, C):
-        ok = ok & valids[i] & (rounds[i - 1] == rounds[i] + 1)
-    r1 = rounds[C - 1]
+    if isinstance(C, int):
+        valids, rounds, _, _ = qc_walk_back(p, s, True, qc_round, qc_var, C)
+        ok = valids[0]
+        for i in range(1, C):
+            ok = ok & valids[i] & (rounds[i - 1] == rounds[i] + 1)
+        r1 = rounds[C - 1]
+    else:
+        valids, rounds, _, _ = qc_walk_back(p, s, True, qc_round, qc_var, 3)
+        is3 = C >= 3
+        ok2 = valids[0] & valids[1] & (rounds[0] == rounds[1] + 1)
+        ok = torch.where(is3, ok2 & valids[2] & (rounds[1] == rounds[2] + 1), ok2)
+        r1 = torch.where(is3, rounds[2], rounds[1])
     ok = ok & (r1 > s.hcr)
     if when is not None:
         ok = ok & when
@@ -637,9 +654,12 @@ def committed_states_after(p: SimParams, s: Store, after_round):
     valids = torch.stack(valids[::-1], dim=1)
     rounds = torch.stack(rounds[::-1], dim=1)
     vars_ = torch.stack(vars_[::-1], dim=1)
-    skip = p.commit_chain - 1
-    # Ascending order: newest-first hop i sits at column W-1-i.
-    keep = valids & (arange(W, s.hcr.device) <= W - 1 - skip) \
+    # Ascending order: newest-first hop i sits at column W-1-i.  A per-row
+    # commit_chain gives a per-row skip.
+    last = W - p.commit_chain
+    if not isinstance(last, int):
+        last = last.unsqueeze(-1)
+    keep = valids & (arange(W, s.hcr.device) <= last) \
         & (rounds > after_round.unsqueeze(-1))
     sls = torch.remainder(rounds, W)
     rows = arange(s.hcr.shape[0], s.hcr.device).unsqueeze(-1)

@@ -57,8 +57,8 @@ DELAY_KEY_DEFAULTS = dict(delay_kind="lognormal", delay_mean=10.0,
                           delay_variance=4.0, delay_pareto_scale=5.0,
                           delay_pareto_alpha=1.5)
 
-#: Width of one attack-schedule window row (the adversary plane's leaf,
-#: zero-width until that slice lands).
+#: Width of one attack-schedule window row (adversary/plane.py):
+#: (mode, lo, hi, behavior, target_lo, target_hi, arg).
 ADV_FIELDS = 7
 #: Columns of one flight-recorder row (telemetry/plane.py).
 FR_COLS = 5
@@ -71,11 +71,16 @@ class SimParams:
 
     The lowering fields (``select_kernel``, ``unroll``, ``packed``,
     ``dense_writes``, ``gate_handlers``) pick between bit-identical forms in
-    the JAX package and have no effect in the port.  The planes of later
-    slices (``scenario``, ``adversary``, ``macro_k > 1``, ``mp_authors``,
-    ``wrap="device"``) raise in the engines
-    until they land; ``shuffle_receivers`` is a serial-engine semantic that
-    the lane engine refuses, as in the JAX package."""
+    the JAX package and have no effect in the port.  What later slices add
+    (``macro_k > 1``, ``mp_authors``, ``wrap="device"``) raises in the
+    engines until it lands; ``shuffle_receivers`` is a serial-engine
+    semantic that the lane engine refuses, as in the JAX package.
+
+    ``scenario`` makes the delay table and the commit rule per-instance
+    data (the ``sc_*`` leaves, read through :class:`TracedParams`);
+    ``adversary`` adds the per-instance attack rows (``adv_*``,
+    adversary/plane.py).  Off, their leaves are zero-width and the engines
+    run nothing for them."""
 
     n_nodes: int = 3
     window: int = 16          # W: record-store round window
@@ -190,6 +195,91 @@ class SimParams:
         n = np.arange(self.dur_table_size, dtype=np.float64)
         vals = np.floor(float(self.delta) * np.power(np.maximum(n, 0), self.gamma))
         return np.minimum(vals, float(NEVER // 2)).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# Per-instance scenario and adversary planes (serve/scenario.py,
+# adversary/plane.py): the knob-default rows of ``shape`` instances, or
+# zero-width leaves when the plane is off.  The all-zero adversary rows are
+# the inert program: a window with hi = 0 never activates, a zero link
+# matrix adds nothing, equal groups with heal = 0 never cut.
+# ---------------------------------------------------------------------------
+
+
+def sc_delay_init(p: SimParams, shape, device):
+    """``sc_delay`` ``[*shape, T]``: the params' own delay table per
+    instance (``[*shape, 0]`` off)."""
+    shape = tuple(shape)
+    if not p.scenario:
+        return _z(shape + (0,), I32, device)
+    table = torch.as_tensor(p.delay_table(), device=device)
+    return table.expand(shape + tuple(table.shape)).contiguous()
+
+
+def sc_commit_init(p: SimParams, shape, device):
+    """``sc_commit`` ``[*shape, 1]``: the params' commit_chain per instance
+    (``[*shape, 0]`` off)."""
+    shape = tuple(shape)
+    if not p.scenario:
+        return _z(shape + (0,), I32, device)
+    return _full(shape + (1,), p.commit_chain, device)
+
+
+def adv_sched_init(p: SimParams, shape, device):
+    """Inert attack schedule ``[*shape, W, ADV_FIELDS]`` (W = 0 off)."""
+    return _z(tuple(shape) + (p.adv_windows if p.adversary else 0, ADV_FIELDS),
+              I32, device)
+
+
+def adv_link_init(p: SimParams, shape, device):
+    """Zero per-link extra delays ``[*shape, n, n]`` (n = 0 off)."""
+    n = p.n_nodes if p.adversary else 0
+    return _z(tuple(shape) + (n, n), I32, device)
+
+
+def adv_group_init(p: SimParams, shape, device):
+    """One partition group for all ``[*shape, n]`` (n = 0 off)."""
+    return _z(tuple(shape) + (p.n_nodes if p.adversary else 0,), I32, device)
+
+
+def adv_heal_init(p: SimParams, shape, device):
+    """Heal at 0, never partitioned: ``[*shape, 1]`` (``[*shape, 0]`` off)."""
+    return _z(tuple(shape) + (1 if p.adversary else 0,), I32, device)
+
+
+def plane_leaves(p: SimParams, shape, device) -> dict:
+    """The ``sc_*`` and ``adv_*`` leaves of a fresh state."""
+    return dict(
+        sc_delay=sc_delay_init(p, shape, device),
+        sc_commit=sc_commit_init(p, shape, device),
+        adv_sched=adv_sched_init(p, shape, device),
+        adv_link=adv_link_init(p, shape, device),
+        adv_group=adv_group_init(p, shape, device),
+        adv_heal=adv_heal_init(p, shape, device),
+    )
+
+
+class TracedParams:
+    """A :class:`SimParams` view whose ``commit_chain`` is a per-row int32
+    tensor (``[B]`` instances, or ``[B*A]`` lane rows): the scenario
+    plane's ``sc_commit``.
+
+    The engines build one per step and hand it to the protocol code in
+    place of the params; every other attribute delegates to the params.
+    core/store.py branches on ``isinstance(commit_chain, int)``: an int
+    keeps the static walk as it is; a tensor walks to the deepest rule
+    once and selects the 2- or 3-chain predicate per row.  Never hashed."""
+
+    __slots__ = ("_p", "commit_chain")
+
+    def __init__(self, p: SimParams, commit_chain):
+        self._p = p
+        self.commit_chain = commit_chain
+
+    def __getattr__(self, name):
+        return getattr(self._p, name)
+
+    __hash__ = None  # type: ignore[assignment]
 
 
 # ---------------------------------------------------------------------------
@@ -669,8 +759,8 @@ class Queue(Tree):
 @dataclasses.dataclass
 class SimState(Tree):
     """A batch of instances: N nodes + network each.  The planes that are
-    off (metrics, flight, wd) and those of later slices (sc_*, adv_*) keep
-    their zero-width shapes, so the leaf set equals the JAX package's."""
+    off (metrics, flight, wd, sc_*, adv_*) keep their zero-width shapes, so
+    the leaf set equals the JAX package's."""
 
     store: Store
     pm: Pacemaker
@@ -703,11 +793,11 @@ class SimState(Tree):
     metrics: Array        # [M] telemetry plane ([0] when off)
     flight: Array         # [K, FR_COLS] flight ring (K = 0 when off)
     wd: Array             # [WD] watchdog plane ([0] when off)
-    sc_delay: Array       # [0] (scenario slice)
-    sc_commit: Array      # [0]
-    adv_sched: Array      # [0, ADV_FIELDS] (adversary slice)
-    adv_link: Array       # [0, 0]
-    adv_group: Array      # [0]
-    adv_heal: Array       # [0]
+    sc_delay: Array       # [T] delay table row ([0] when off)
+    sc_commit: Array      # [1] commit chain, 2 or 3 ([0] when off)
+    adv_sched: Array      # [W, ADV_FIELDS] attack schedule ([0, F] off)
+    adv_link: Array       # [n, n] per-link extra delay ([0, 0] off)
+    adv_group: Array      # [n] partition group ([0] off)
+    adv_heal: Array       # [1] partition heal time ([0] off)
 
     U32 = frozenset({"seed", "drop_u32"})

@@ -62,7 +62,7 @@ def _safety_device(log_depth, log_tag, commit_count, honest):
     b, n, h = log_depth.shape
     dev = log_depth.device
     valid = ((arange(h, dev) < commit_count.clamp(max=h).unsqueeze(-1))
-             & honest.view(1, n, 1)).reshape(b, n * h)
+             & honest.view(-1, n, 1)).reshape(b, n * h)
     # Invalid entries get distinct negative depths, so they never collide.
     uniq = (-1 - arange(n * h, dev)).to(log_depth.dtype)
     depth = torch.where(valid, log_depth.reshape(b, n * h), uniq)
@@ -76,15 +76,20 @@ def _safety_device(log_depth, log_tag, commit_count, honest):
 
 
 def _honest(st, honest_mask):
-    n = st.ctx.log_depth.shape[1]
-    return np.ones((n,), bool) if honest_mask is None else np.asarray(honest_mask, bool)
+    """The honest mask as a ``[B, N]`` bool array (``honest_mask`` is None,
+    ``[N]`` shared, or ``[B, N]`` per instance)."""
+    b, n = st.ctx.log_depth.shape[:2]
+    m = np.ones((n,), bool) if honest_mask is None else np.asarray(honest_mask, bool)
+    return np.broadcast_to(m, (b, n)).copy()
 
 
 def check_safety(st, honest_mask=None) -> np.ndarray:
     """Per-instance safety of a batched SimState or PSimState: across the
     honest nodes, committed tags agree at equal depth (over each node's ring
-    log, its last ``commit_log`` commits).  Runs on the state's device with
-    one host read at the end; returns a bool ``[B]`` numpy array."""
+    log, its last ``commit_log`` commits).  ``honest_mask`` is ``[N]``
+    (shared) or ``[B, N]`` (per instance: e.g. a scenario fleet's
+    ``serve.scenario.honest_masks``).  Runs on the state's device with one
+    host read at the end; returns a bool ``[B]`` numpy array."""
     honest = torch.as_tensor(_honest(st, honest_mask), device=st.ctx.log_depth.device)
     safe = _safety_device(st.ctx.log_depth, st.ctx.log_tag, st.ctx.commit_count, honest)
     return safe.cpu().numpy()
@@ -101,7 +106,7 @@ def check_safety_reference(st, honest_mask=None) -> np.ndarray:
     for i in range(b):
         seen: dict[int, int] = {}
         for a in range(n):
-            if not honest[a]:
+            if not honest[i, a]:
                 continue
             cc = int(commit_count[i, a])
             for j in range(max(cc - h, 0), cc):

@@ -57,6 +57,7 @@ def save(path: str, state) -> None:
 
 def _template(p: SimParams, data, like):
     """(path, shape, numpy dtype) of every leaf the restored state has."""
+    b = None
     if like is None:
         from . import parallel_sim as P
         from . import simulator as S
@@ -64,19 +65,20 @@ def _template(p: SimParams, data, like):
         sample = data["clock"]
         b = sample.shape[0] if sample.ndim > 0 else 1
         engine = P if "in_valid" in data else S
-        # Shapes only: the meta device allocates nothing.
-        like = engine.init_batch(p, np.zeros(b, np.uint32), device="meta")
+        # A batch of one on the CPU; every leaf has the batch dim in front.
+        like = engine.init_batch(p, np.zeros(1, np.uint32), device="cpu")
     out = []
     for path, leaf, is_u32 in leaves_with_path(like):
         dtype = np.uint32 if is_u32 else np.bool_ if leaf.dtype == torch.bool else np.int32
-        out.append((path, tuple(leaf.shape), dtype))
+        shape = tuple(leaf.shape) if b is None else (b,) + tuple(leaf.shape[1:])
+        out.append((path, shape, dtype))
     return out
 
 
 def load(path: str, p: SimParams, like=None, device="cuda"):
     """Restore a state on ``device``.  ``like`` gives the structure and
-    shapes (default: a fresh ``init_batch`` of the checkpoint's batch, a
-    lane state when it holds inboxes).  Leaves the load params resize or
+    shapes (default: those of a fresh ``init_batch`` of the load params at
+    the checkpoint's batch, a lane state when it holds inboxes).  Leaves the load params resize or
     that an older checkpoint lacks are restored as the JAX package
     restores them: soft state (handoff ring, trace ring, planes) empty, the
     scenario rows from the load params, the adversary rows inert; any

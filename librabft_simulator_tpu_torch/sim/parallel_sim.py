@@ -38,6 +38,16 @@ every window update the metrics plane, the flight ring and the watchdog
 plane (telemetry/); the stall and queue-saturation detectors count per
 window here, where the serial engine counts them per event.  Off, nothing
 runs for them.
+
+With ``SimParams.scenario`` on, each instance's lookahead is its own:
+``d_min = max(min(sc_delay), 1)``, a ``[B]`` tensor, and its lanes draw
+from its own table and commit by its own rule.  With
+``SimParams.adversary`` on, the horizon widens by the least off-diagonal
+per-link extra delay (``plane.link_lookahead``; the draws stay clamped at
+``d_min``), each lane decodes its windows from its own event time, its
+node's epoch before the event and the instance's event count at the window
+start, and the network plane adds link and window delays and partition
+cuts.  Every per-instance leaf reaches a lane row through ``row // A``.
 """
 
 from __future__ import annotations
@@ -47,8 +57,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..adversary import plane as aplane
+from ..core.config import leader_of_round
 from ..core.types import (
-    ADV_FIELDS,
     KIND_NOTIFY,
     KIND_REQUEST,
     KIND_RESPONSE,
@@ -60,8 +71,10 @@ from ..core.types import (
     Pacemaker,
     SimParams,
     Store,
+    TracedParams,
     Tree,
     payload_width,
+    plane_leaves,
     sat_add,
     tree_fields,
     tree_map,
@@ -132,12 +145,12 @@ class PSimState(Tree):
     metrics: Array        # [M] telemetry plane ([0] when off)
     flight: Array         # [K, FR_COLS] flight ring (K = 0 when off)
     wd: Array             # [WD] watchdog plane ([0] when off)
-    sc_delay: Array       # [0] (scenario slice)
-    sc_commit: Array
-    adv_sched: Array      # [0, ADV_FIELDS] (adversary slice)
-    adv_link: Array
-    adv_group: Array
-    adv_heal: Array
+    sc_delay: Array       # [T] delay table row ([0] when off)
+    sc_commit: Array      # [1] commit chain ([0] when off)
+    adv_sched: Array      # [W, ADV_FIELDS] attack schedule ([0, F] off)
+    adv_link: Array       # [n, n] ([0, 0] off)
+    adv_group: Array      # [n] ([0] off)
+    adv_heal: Array       # [1] ([0] off)
 
     U32 = frozenset({"seed", "drop_u32"})
 
@@ -146,7 +159,12 @@ INBOX = ("in_valid", "in_time", "in_kind", "in_stamp", "in_sender", "in_pay")
 
 
 def d_min_of(p: SimParams) -> int:
-    """Network lookahead: the minimum message latency (>= 1)."""
+    """Network lookahead: the minimum message latency (>= 1).  With the
+    scenario plane on, instances carry their own tables, so this is 1, the
+    bound sound for any table; ``step`` then ignores its ``d_min`` and
+    takes each instance's own ``max(min(sc_delay), 1)``."""
+    if p.scenario:
+        return 1
     return max(int(np.min(p.delay_table())), 1)
 
 
@@ -266,9 +284,7 @@ def init_batch(p: SimParams, seeds, weights=None, byz_equivocate=None,
         trace_time=z(b, p.trace_cap), trace_count=z(b),
         metrics=tplane.init_plane(p, (b,), device), flight=tplane.init_flight(p, (b,), device),
         wd=tstream.init_wd(p, (b,), device),
-        sc_delay=z(b, 0), sc_commit=z(b, 0),
-        adv_sched=z(b, 0, ADV_FIELDS), adv_link=z(b, 0, 0), adv_group=z(b, 0),
-        adv_heal=z(b, 0),
+        **plane_leaves(p, (b,), device),
     )
 
 
@@ -332,13 +348,18 @@ def step(p: SimParams, delay_table, dur_table, d_min: int, st: PSimState,
     """One window of every instance: compact the A earliest qualifying nodes
     onto lanes, drain up to K events per lane, then route every message the
     window sent.  ``any_equivocate`` / ``any_forge`` may be False when no
-    instance carries that Byzantine mask."""
+    instance can equivocate or forge (``simulator.byz_flags``).  With the
+    scenario plane on, ``delay_table`` and ``d_min`` are ignored: each
+    instance uses its own ``sc_delay`` row and its lookahead."""
     n, ic, F = p.n_nodes, inbox_cap(p), payload_width(p)
     A, K, nc = lanes_of(p), drain_of(p), 2 * p.n_nodes + 1
     b = st.clock.shape[0]
     rows = b * A
     dev = st.clock.device
     nodes = arange(n, dev)
+    if p.scenario:
+        d_min = st.sc_delay.amin(dim=1).clamp(min=1)
+    d_hz = d_min + aplane.link_lookahead(st.adv_link, n) if p.adversary else d_min
 
     # ---- Window bookkeeping: per-node earliest times, the global horizon.
     msg_time = torch.where(st.in_valid, st.in_time, NEVER)
@@ -347,7 +368,10 @@ def step(p: SimParams, delay_table, dur_table, d_min: int, st: PSimState,
     halt = st.halted | (t_min > st.max_clock)
     live = ~halt
     clock = torch.maximum(st.clock, t_min.clamp(max=NEVER - 1))
-    hz = t_min.clamp(max=NEVER - d_min) + d_min
+    if isinstance(d_hz, int):
+        hz = t_min.clamp(max=NEVER - d_hz) + d_hz
+    else:
+        hz = torch.minimum(t_min, NEVER - d_hz) + d_hz
     qualify = live.unsqueeze(1) & (t_ev < hz.unsqueeze(1)) & (
         t_ev <= st.max_clock.unsqueeze(1))
 
@@ -369,6 +393,15 @@ def step(p: SimParams, delay_table, dur_table, d_min: int, st: PSimState,
     lane_on = qualify.gather(1, sel).reshape(-1)
     lane_startup = lanes(st.startup)
     l_sil, l_eq, l_forge = lanes(st.byz_silent), lanes(st.byz_equivocate), lanes(st.byz_forge_qc)
+    pp = TracedParams(p, per_lane(st.sc_commit[:, 0])) if p.scenario else p
+    if p.scenario:
+        dmin_l = per_lane(d_min).unsqueeze(1)
+    if p.adversary:
+        # Per lane: its instance's schedule and event count at the window
+        # start, its node's link row and group, the receivers' groups.
+        sched_l, ev_l = per_lane(st.adv_sched), per_lane(st.n_events)
+        link_l, group_a = lanes(st.adv_link), lanes(st.adv_group)
+        group_l, heal_l = per_lane(st.adv_group), per_lane(st.adv_heal[:, 0])
     hz_l, maxc_l = per_lane(hz), per_lane(st.max_clock)
     seed_l, drop_l = per_lane(st.seed).unsqueeze(1), H.as_u32(per_lane(st.drop_u32)).unsqueeze(1)
     weights_l = per_lane(st.weights)
@@ -416,16 +449,25 @@ def step(p: SimParams, delay_table, dur_table, d_min: int, st: PSimState,
         do_update = act & (is_tm | is_notify | is_response)
         pre_round, pre_start = g_pm.active_round, g_pm.round_start
         pre_cc, pre_sync = g_cx.commit_count, g_cx.sync_jumps
+        if p.adversary:
+            # Windowed behaviors of each lane's node, keyed on the lane's
+            # event time, its node's epoch before the handler and the
+            # instance's event count at the window start.
+            adv_act = aplane.active_windows(sched_l, t_l, ev_l, g_store.epoch_id)
+            a_eq, a_sil, a_forge = aplane.node_masks(sched_l, adv_act, author)
+            eq_i, sil_i, forge_i = l_eq | a_eq, l_sil | a_sil, l_forge | a_forge
+        else:
+            eq_i, sil_i, forge_i = l_eq, l_sil, l_forge
         (g_store, g_pm, g_nx, g_cx, actions, should_sync, bank, g_hop,
          g_hoe) = S.handle_events(
-            p, dur_table, g_store, g_pm, g_nx, g_cx, weights_l, author,
+            pp, dur_table, g_store, g_pm, g_nx, g_cx, weights_l, author,
             t_l - lane_startup, pay_in, is_notify, is_request, is_response,
-            do_update, l_forge, l_sil, g_hop, g_hoe, any_equivocate, any_forge)
+            do_update, forge_i, sil_i, g_hop, g_hoe, any_equivocate, any_forge)
 
         # ---- Outgoing candidates: [lanes, 2n+1].
-        want_response = is_request & ~l_sil
-        cand0_want = (is_notify & should_sync & ~l_sil) | want_response
-        speak = do_update & ~l_sil
+        want_response = is_request & ~sil_i
+        cand0_want = (is_notify & should_sync & ~sil_i) | want_response
+        speak = do_update & ~sil_i
         send_mask = actions.send_mask & others & speak.unsqueeze(1)
         query_mask = others & (actions.should_query_all & speak).unsqueeze(1)
         want = torch.cat([cand0_want.unsqueeze(1), send_mask, query_mask], dim=1)
@@ -433,7 +475,7 @@ def step(p: SimParams, delay_table, dur_table, d_min: int, st: PSimState,
                            .to(I32).unsqueeze(1), kinds_rest], dim=1)
         recvs = torch.cat([sender.clamp(0, n - 1).unsqueeze(1), node_row, node_row], dim=1)
         pay_sel = torch.cat([torch.where(want_response, 3, 2).to(I32).unsqueeze(1),
-                             (l_eq.unsqueeze(1) & upper).to(I32),
+                             (eq_i.unsqueeze(1) & upper).to(I32),
                              const((rows, n), 2, I32, dev)], dim=1)
 
         # Node-local stamps (ctr * N + node): disjoint across nodes, so the
@@ -444,8 +486,23 @@ def step(p: SimParams, delay_table, dur_table, d_min: int, st: PSimState,
                   + author.unsqueeze(1)).to(I32)
         g_ctr = g_ctr + torch.where(act, want.sum(dim=1, dtype=I32) + timer_gap, 0)
         u_delay, u_drop = H.rng_u32_pair(seed_l, stamps)
-        delays = delay_table[H.as_u32(u_delay) >> (32 - TABLE_BITS)].clamp(min=d_min)
+        u_idx = H.as_u32(u_delay) >> (32 - TABLE_BITS)
+        if p.scenario:
+            delays = torch.maximum(
+                st.sc_delay.gather(1, u_idx.view(b, A * nc)).view(rows, nc), dmin_l)
+        else:
+            delays = delay_table[u_idx].clamp(min=d_min)
         dropped = want & (H.as_u32(u_drop) < drop_l)
+        if p.adversary:
+            # The network plane (see simulator.step); the leader is each
+            # lane's node's, after its handler.
+            recv_c = recvs.to(I64)
+            leader = leader_of_round(weights_l, g_pm.active_round)
+            delays = (delays + link_l.gather(1, recv_c).clamp(0, aplane.DELAY_CAP)
+                      + aplane.delay_extra(sched_l, adv_act, recv_c, leader))
+            cut = ((group_a.unsqueeze(1) != group_l.gather(1, recv_c))
+                   & (t_l < heal_l).unsqueeze(1))
+            dropped = dropped | (want & cut)
         arrive = t_l.unsqueeze(1) + delays
         go = want & ~dropped
 
@@ -694,16 +751,16 @@ def run_to_completion(p: SimParams, st: PSimState, chunk: int = RUN_CHUNK,
     contract of ``simulator.stream_completion`` (its ``steps`` count
     windows).  ``d_min`` overrides the lookahead (1 <= d_min <=
     d_min_of(p)); absent inbox overflow the trajectory does not depend on
-    it, nor on ``active_lanes`` / ``drain_k``.  The number of windows taken
-    is ``run_to_completion.last_steps``."""
+    it, nor on ``active_lanes`` / ``drain_k``.  With the scenario plane on,
+    d_min_of(p) is 1 and each instance derives its own lookahead.  The
+    number of windows taken is ``run_to_completion.last_steps``."""
     del batched
     check_slice(p)
     dmin = d_min_of(p) if d_min is None else int(d_min)
     if not 1 <= dmin <= d_min_of(p):
         raise ValueError(f"d_min={dmin} must lie in [1, {d_min_of(p)}]")
     delay_table, dur_table = S.tables(p, st.clock.device)
-    any_eq = bool(st.byz_equivocate.any())
-    any_forge = bool(st.byz_forge_qc.any())
+    any_eq, any_forge = S.byz_flags(p, st)
 
     def run_chunk(st):
         for _ in range(chunk):

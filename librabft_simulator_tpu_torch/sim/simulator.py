@@ -16,7 +16,12 @@ unless the caller passes ``device="cpu"``.
 ``SimParams.telemetry`` (the metrics plane and flight recorder) and
 ``SimParams.watchdog`` (the consensus watchdog) add their updates to the
 step when on; off, their leaves are zero-width and the step launches
-nothing for them.  The planes of later slices raise
+nothing for them.  So do the scenario plane (``SimParams.scenario``: each
+instance draws its delays from its own ``sc_delay`` table and commits by
+its own ``sc_commit`` rule) and the adversary plane
+(``SimParams.adversary``: windowed Byzantine behaviors OR-ed onto the
+static masks, per-link and windowed extra delays, partitions that heal;
+adversary/plane.py).  What later slices add raises
 ``NotImplementedError`` here (see :func:`check_slice`); nothing is ignored
 silently.
 """
@@ -26,9 +31,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..adversary import plane as aplane
 from ..core import data_sync, node as node_ops, store as store_ops
+from ..core.config import leader_of_round
 from ..core.types import (
-    ADV_FIELDS,
     KIND_NOTIFY,
     KIND_REQUEST,
     KIND_RESPONSE,
@@ -42,9 +48,11 @@ from ..core.types import (
     SimParams,
     SimState,
     Store,
+    TracedParams,
     pack_payload,
     payload_offsets,
     payload_width,
+    plane_leaves,
     sat_add,
     tree_fields,
     tree_map,
@@ -67,8 +75,6 @@ RUN_MAX_CHUNKS = 400
 def check_slice(p: SimParams):
     """Raise for the SimParams planes that later slices of the port add."""
     later = [
-        ("scenario", p.scenario, "the scenario/adversary-plane slice"),
-        ("adversary", p.adversary, "the scenario/adversary-plane slice"),
         ("macro_k > 1", (p.macro_k or 1) > 1, "the sharded-runtime slice"),
         ("mp_authors", p.mp_authors, "the multi-GPU slice"),
         ('wrap="device"', p.wrap == "device", "the sharded-runtime slice"),
@@ -140,9 +146,7 @@ def init_batch(p: SimParams, seeds, weights=None, byz_equivocate=None,
         trace_time=z(b, p.trace_cap), trace_count=z(b),
         metrics=tplane.init_plane(p, (b,), device), flight=tplane.init_flight(p, (b,), device),
         wd=tstream.init_wd(p, (b,), device),
-        sc_delay=z(b, 0), sc_commit=z(b, 0),
-        adv_sched=z(b, 0, ADV_FIELDS), adv_link=z(b, 0, 0), adv_group=z(b, 0),
-        adv_heal=z(b, 0),
+        **plane_leaves(p, (b,), device),
     )
 
 
@@ -322,12 +326,17 @@ def step(p: SimParams, delay_table, dur_table, st: SimState,
     simulator.rs:380-468).
 
     ``any_equivocate`` / ``any_forge`` may be False when no instance of the
-    batch carries that Byzantine mask; the payload the mask would select is
-    then never built (the trajectory is the same)."""
+    batch can equivocate or forge (:func:`byz_flags`); the payload that
+    behavior would select is then never built (the trajectory is the same).
+
+    With the scenario plane on, ``delay_table`` is ignored: each instance
+    draws from its own ``sc_delay`` row, and the protocol code sees the
+    params through a TracedParams whose ``commit_chain`` is ``sc_commit``."""
     n, cm = p.n_nodes, p.queue_cap
     b = st.clock.shape[0]
     dev = st.clock.device
     nodes = arange(n, dev)
+    pp = TracedParams(p, st.sc_commit[:, 0]) if p.scenario else p
     idx, t_min, is_timer = _select_event(p, st)
     halt = st.halted | (t_min > st.max_clock)
     live = ~halt
@@ -348,6 +357,13 @@ def step(p: SimParams, delay_table, dur_table, st: SimState,
     eqv_a = take(st.byz_equivocate, a)
     silent_a = take(st.byz_silent, a)
     forge_a = take(st.byz_forge_qc, a)
+    if p.adversary:
+        # Windowed behaviors of the handled node, OR-ed onto the static
+        # masks.  Keys: the event time, the instance's event count before
+        # this event, and the node's epoch before its handler.
+        adv_act = aplane.active_windows(st.adv_sched, clock, st.n_events, s_a.epoch_id)
+        adv_eq, adv_sil, adv_forge = aplane.node_masks(st.adv_sched, adv_act, a)
+        eqv_a, silent_a, forge_a = eqv_a | adv_eq, silent_a | adv_sil, forge_a | adv_forge
 
     not_timer = live & ~is_timer
     is_notify = not_timer & (kind == KIND_NOTIFY)
@@ -360,7 +376,7 @@ def step(p: SimParams, delay_table, dur_table, st: SimState,
         rows_a = eps_a = None
     (s_f, pm_f, nx_f, cx_f, actions, should_sync, payload_bank, rows_a,
      eps_a) = handle_events(
-        p, dur_table, s_a, pm_a, nx_a, cx_a, st.weights, a, local_clock, pay_in,
+        pp, dur_table, s_a, pm_a, nx_a, cx_a, st.weights, a, local_clock, pay_in,
         is_notify, is_request, is_response, do_update, forge_a, silent_a,
         rows_a, eps_a, any_equivocate, any_forge)
     if p.epoch_handoff:
@@ -421,8 +437,21 @@ def step(p: SimParams, delay_table, dur_table, st: SimState,
     # Delays + drops (schedule_network_event): unsigned draws, compared and
     # shifted on their int64 values.
     u_delay, u_drop = H.rng_u32_pair(st.seed.unsqueeze(-1), stamps)
-    delays = delay_table[H.as_u32(u_delay) >> (32 - TABLE_BITS)]
+    u_idx = H.as_u32(u_delay) >> (32 - TABLE_BITS)
+    delays = st.sc_delay.gather(1, u_idx) if p.scenario else delay_table[u_idx]
     dropped = want & (H.as_u32(u_drop) < H.as_u32(st.drop_u32).unsqueeze(-1))
+    if p.adversary:
+        # The network plane: the link's and the active delay windows' extra
+        # latency on each candidate, and the partition cut (a crossing
+        # message sent before the heal time is dropped).  The leader is the
+        # handled node's, after its handler.
+        recv_c = recvs.clamp(0, n - 1).to(torch.int64)
+        leader = leader_of_round(st.weights, pm_f.active_round)
+        delays = (delays + take(st.adv_link, a).gather(1, recv_c).clamp(0, aplane.DELAY_CAP)
+                  + aplane.delay_extra(st.adv_sched, adv_act, recv_c, leader))
+        cut = ((take(st.adv_group, a).unsqueeze(-1) != st.adv_group.gather(1, recv_c))
+               & (clock < st.adv_heal[:, 0]).unsqueeze(-1))
+        dropped = dropped | (want & cut)
     arrive = clock.unsqueeze(-1) + delays
 
     # Free-slot assignment.
@@ -604,6 +633,22 @@ def _telemetry_step(p: SimParams, st: SimState, a, kind, clock, live, is_timer,
     return m, flight
 
 
+def byz_flags(p: SimParams, st):
+    """(any_equivocate, any_forge): whether some instance of a SimState or
+    PSimState can equivocate or forge a QC during a run, by a static mask
+    or by a window of its attack schedule (a window row with ``hi > lo``
+    and that behavior).  Both are constant over a run: one host read."""
+    eq, forge = st.byz_equivocate.any(), st.byz_forge_qc.any()
+    if p.adversary:
+        sched = st.adv_sched
+        live = sched[..., aplane.F_HI] > sched[..., aplane.F_LO]
+        beh = sched[..., aplane.F_BEH]
+        eq = eq | (live & (beh == aplane.BEH_EQUIVOCATE)).any()
+        forge = forge | (live & (beh == aplane.BEH_FORGE_QC)).any()
+    eq, forge = torch.stack([eq, forge]).tolist()
+    return eq, forge
+
+
 def select_instances(st, idx):
     """The instances ``idx`` of a batched SimState or PSimState, as copies
     (e.g. to compare a few instances of a card run with a CPU run; a lane
@@ -654,9 +699,7 @@ def run_to_completion(p: SimParams, st: SimState, chunk: int = RUN_CHUNK,
     check_slice(p)
     dev = st.clock.device
     delay_table, dur_table = tables(p, dev)
-    # The Byzantine masks are constant over a run: read them once.
-    any_eq = bool(st.byz_equivocate.any())
-    any_forge = bool(st.byz_forge_qc.any())
+    any_eq, any_forge = byz_flags(p, st)
 
     def run_chunk(st):
         for _ in range(chunk):

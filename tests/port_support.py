@@ -64,3 +64,14 @@ def port_byz_fleet(engine, p, seeds, silent_i, silent_nodes, doctor_i):
         log_depth=planted(cx.log_depth, (i, 1, 0), 1),
         log_tag=planted(cx.log_tag, (i, 1, 0), int(np.uint32(0xDEADBEEF).view(np.int32))),
         log_round=planted(cx.log_round, (i, 1, 0), 999)))
+
+
+def install_each(p, st, programs):
+    """Row b of a port state takes ``programs[b]``'s attack rows (a port
+    ``AttackProgram``; None: the inert rows)."""
+    import torch
+    from librabft_simulator_tpu_torch.adversary import plane
+
+    rows = [pr.lower(p) if pr is not None else plane.default_rows(p) for pr in programs]
+    return st.replace(**{k: torch.stack([torch.as_tensor(r[k]) for r in rows])
+                         for k in rows[0]})

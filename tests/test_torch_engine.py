@@ -126,13 +126,17 @@ def test_against_oracle_edge_shapes(case):
 
 
 def test_later_slices_raise():
-    for kw in (dict(scenario=True), dict(adversary=True), dict(macro_k=4),
-               dict(wrap="device"), dict(mp_authors=True)):
+    for kw in (dict(macro_k=4), dict(wrap="device"), dict(mp_authors=True)):
         with pytest.raises(NotImplementedError):
             S.init_batch(SimParams(**kw), [0], device="cpu")
     # The telemetry and watchdog planes are ported: they allocate their leaves.
     st = S.init_batch(SimParams(telemetry=True, watchdog=True), [0], device="cpu")
     assert st.metrics.shape[1] > 0 and st.wd.shape == (1, 6)
+    # So are the scenario and adversary planes (tests/test_torch_scenario.py).
+    st = S.init_batch(SimParams(scenario=True, adversary=True), [0], device="cpu")
+    assert st.sc_delay.shape == (1, 1024) and st.sc_commit.tolist() == [[3]]
+    assert st.adv_sched.shape == (1, 4, 7) and st.adv_link.shape == (1, 3, 3)
+    assert st.adv_group.shape == (1, 3) and st.adv_heal.shape == (1, 1)
 
 
 def test_skipping_masked_work_is_exact(monkeypatch):

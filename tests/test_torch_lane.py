@@ -194,7 +194,7 @@ def test_lane_state_round_trip():
 
 
 def test_lane_rejects_what_it_does_not_run():
-    for kw in (dict(scenario=True), dict(adversary=True), dict(shuffle_receivers=True)):
+    for kw in (dict(shuffle_receivers=True), dict(wrap="device"), dict(mp_authors=True)):
         with pytest.raises(NotImplementedError):
             P.init_batch(SimParams(**kw), [0], device="cpu")
     with pytest.raises(ValueError, match="serial-engine knob"):
@@ -205,6 +205,12 @@ def test_lane_rejects_what_it_does_not_run():
     # The telemetry and watchdog planes are ported (tests/test_torch_telemetry.py).
     st = P.init_batch(SimParams(telemetry=True, watchdog=True), [0], device="cpu")
     assert st.metrics.shape[1] > 0 and st.wd.shape == (1, 6)
+    # So are the scenario and adversary planes (tests/test_torch_scenario.py).
+    st = P.init_batch(SimParams(scenario=True, adversary=True), [0], device="cpu")
+    assert st.sc_delay.shape == (1, 1024) and st.sc_commit.tolist() == [[3]]
+    assert st.adv_sched.shape == (1, 4, 7) and st.adv_link.shape == (1, 3, 3)
+    assert st.adv_group.shape == (1, 3) and st.adv_heal.shape == (1, 1)
+    assert P.d_min_of(SimParams(scenario=True)) == 1
 
 
 def _jax_sweep_parser():
