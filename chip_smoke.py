@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py [--max_clock 300] [--byz_clock 150] [--c3_clock 30] [--c5_clock 65]
                           [--sc_clock 100 180] [--sc5_clock 60 70] [--sc5_clock3 85 95]
+                          [--ring5_clock 40]
 
 Phases, each printed with its seconds:
   1. card: nvidia-smi name and power limit, torch's device name;
@@ -31,14 +32,15 @@ Phases, each printed with its seconds:
      turns;
   4. main path, serial: init_batch + run_to_completion at BASELINE config
      #2 (4 nodes, uniform delay, queue_cap 64 as the CLI sets it,
-     consecutive seeds); select_queue_events' launch count must equal the
-     batch steps run;
+     consecutive seeds; a halt read every 64 steps, where the fleet halts);
+     select_queue_events' launch count must equal the batch steps run;
   5. card vs CPU: four of those instances re-run on the CPU with the plain
      select, every leaf compared bit for bit with the card's final rows;
   6. where the time goes (serial): 4 batch steps of a fresh fleet under
      torch.profiler (device busy share, kernels per step, top kernels);
   7. config #4: byzantine.f_sweep for f in {0, 1} (4 nodes, the sweep's
-     SimParams, 10,000 instances); safe fraction 1, live fraction > 0, the
+     SimParams, 10,000 instances, a halt read every 32 steps); safe
+     fraction 1, live fraction > 0, the
      device safety check equal to the Python reference on every instance of
      the f=1 run, and one planted conflict caught on the card;
   8. config #3 on the lane engine at full width (64 nodes, Pareto delay, 5%
@@ -46,14 +48,15 @@ Phases, each printed with its seconds:
      select_queue_events launches = drain x windows; windows, ms per
      window, events/s, rounds/s, drops, inbox-full, peak memory; then 3
      instances re-run on the CPU, every leaf equal; then one window of a
-     fresh fleet, after two, under torch.profiler;
+     fresh fleet, after one, under torch.profiler;
   9. config #5 on the lane engine at full width (16 nodes, 2-chain, uniform
      delay, 256-slot inboxes, 10,000 instances), as phase 8 without the
      profile;
  10. config #2 with the telemetry plane and the consensus watchdog on
      (default flight_cap and stall threshold), through
-     run_to_completion(stream=TimelineRecorder): ms per batch step beside
-     phase 4's, launches per step under torch.profiler, the final digest and
+     run_to_completion(stream=TimelineRecorder), in 64-step chunks, with the
+     CPU workers stopped: ms per batch step beside phase 4's, launches per
+     step under torch.profiler, the final digest and
      the merged telemetry block, and ms per step with the planes off and on
      in turns on one run; on every instance the plane's event counts
      sum to n_events and its drops and overflow equal the state's; the
@@ -62,7 +65,7 @@ Phases, each printed with its seconds:
      doctor_ctx) that must trip safety_conflict and round_regress, and the
      picked instances (it among them) equal a CPU run in every leaf;
  11. config #5 on the lane engine with both planes and the stream: ms per
-     window beside phase 9's and, in turns, off and on; peak memory, the
+     window beside phase 9's (the same fleet, planes off); peak memory, the
      inbox overflow, high-water mark and saturation counts, the counter
      invariants, three instances equal a CPU run in every leaf.  Phases 9
      and 11 fail unless the fleet commits and its inboxes overflow, and
@@ -70,10 +73,10 @@ Phases, each printed with its seconds:
      trip: a horizon too short for these paths fails, it does not pass
      quietly;
  12. a checkpoint round trip on the card: phase 10's fleet, saved
-     (sim/checkpoint.py) after its first chunk, is loaded on the card and
-     resumed, and must equal phase 10's run, which went on in memory, in
-     every leaf; the checkpoint loaded on the CPU equals the card's state it
-     was saved from;
+     (sim/checkpoint.py) after its sixth chunk (step 384), loaded on the
+     card and on the CPU, equals the card's state it was saved from in every
+     leaf; phase 15 resumes it and holds the result to phase 10's run, which
+     went on in memory;
  13. the scenario and adversary planes on the serial engine at config #2's
      width (n=4, queue_cap 64, B=10,000, adv_windows 4): a fleet built by
      serve/scenario.init_specs from 10,000 ScenarioSpecs that cycle the
@@ -90,8 +93,8 @@ Phases, each printed with its seconds:
      unchanged by the run; the device safety check with per-slot honest
      masks equals its reference on every slot.  Prints the safe fraction
      per commit chain, ms per batch step beside phase 4's, and kernels per
-     step under torch.profiler (4 steps) with the run's Byzantine flags
-     and with them off, beside phase 6's;
+     step under torch.profiler (4 steps) of a copy of the unrun fleet with
+     the run's Byzantine flags, then with the flags off, beside phase 6's;
  14. the same kind of fleet on the lane engine at config #5's shapes (n=16,
      inbox 256, 8 lanes, drain 4, B=10,000; families, so d_min differs by
      slot; chains 2 and 3; sample_program at n=16 with f_max 5, link
@@ -104,24 +107,55 @@ Phases, each printed with its seconds:
      every slot, and a committed 3-chain slot, a committed 2-chain slot and
      the slot with the most events equal a CPU run in every leaf; ms per
      window beside phase 9's, windows and peak memory; kernels per window
-     under torch.profiler (1 window after 2) of this fleet and of config #5
-     with the planes off.
+     under torch.profiler (1 window after 2) of a fresh fleet (config #5
+     with the planes off is not profiled);
+ 15. the sharded runtime (parallel/sharded.py) and the runtime ledger
+     (telemetry/ledger.py), with the CPU workers stopped during both runs.
+     Serial: phase 12's checkpoint (phase 10's fleet at step 384) loaded by
+     checkpoint.load_sharded onto a 3-shard mesh on the one card (10,000
+     instances padded to 10,002 with pre-halted ones), run by run_sharded
+     with wrap="device", ring_k 4, macro_k 4 and chunks of 4 macro-steps (16
+     events, so one outer call retires up to one of phase 10's 64-step
+     chunks) and a TimelineRecorder: the 10,000 real instances must equal
+     phase 10's final state in every leaf (the resume of phase 12's
+     checkpoint), every fourth ring row and the last equal phase 10's
+     stream row at the same event count folded with the two padding
+     instances' digests, select launches = event steps x shards, and from
+     the ledger's ring_stats fewer ring fetches, and fewer waits on the
+     device (ring fetches and halt reads that waited), than retired chunks;
+     prints the halt reads and the seconds of each kind of poll span, and
+     the ledger's compile entry of the kernel build.  Lanes: config #5's
+     shapes (B=10,000, one shard, so the card holds the state once) through
+     run_sharded with the device wrap, horizon --ring5_clock (cut):
+     launches = drain x windows, three instances equal a CPU run, the last
+     ring row equals compute_digest of the final state, peak memory at most
+     phase 9's + 1 GB, the same ring_stats checks.  Prints ms per event step
+     and per window beside phases 10 and 9 and the ledger's pipeline stats.
 
-Only the horizon (max_clock) of a main path is cut, to fit the time limit;
-each cut is printed.  Every path is driven with the launch counts set to 0
-just before it and read just after.  Prints the kernel table as one JSON
-line, the card's name and power limit, and last the result line.  Any
-mismatch or exception exits non-zero; with no GPU it exits non-zero before
-printing any result.
+The card-vs-CPU re-runs of phases 5-15 go to two worker processes
+(``CpuChecks``) while the card runs the later phases; their comparisons are
+printed, and fail the script, after phase 15.  The workers are stopped
+(SIGSTOP) during the timed runs of phases 9, 10 and 15, whose figures are
+set side by side; every other timed run prints how many reference runs were
+pending at its start and end, the load it shared the host with.  Only the
+horizon (max_clock) of a main path is cut, to fit the time limit; each cut
+is printed.  Profiles are summed from the profiler's raw device events
+(``kernel_rows``), not torch's post-processing.  Every path is driven with
+the launch counts set to 0 just before it and read just after.  Prints the
+kernel table as one JSON line, the card's name and power limit, and last
+the result line.  Any mismatch or exception exits non-zero; with no GPU it
+exits non-zero before printing any result.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -149,6 +183,17 @@ FULL_CLOCK = 1000              # the BASELINE configs' horizon
 LANE_PICKS = 3                 # lane instances re-run on the CPU
 DOCTOR_I = 3                   # phase 10's instance with a planted conflicting commit
 FAMILIES = ("uniform", "lognormal", "pareto")
+SERIAL_CHUNK = 64              # config #2's halt reads (phases 4, 10): it halts at step 448
+CKPT_CHUNKS = 6                # phase 10 saves its fleet after this many chunks (step 384)
+SWEEP_CHUNK = 32               # config #4's halt reads (phase 7)
+SHARDS = 3                     # phase 15's serial mesh: 10,000 pads to 10,002
+RING_K = 4                     # phase 15's ring depth, both engines
+MACRO_K = 4                    # phase 15's serial macro-step width
+RING_CHUNK = SERIAL_CHUNK // (RING_K * MACRO_K)  # its chunk in macro-steps: a ring call
+                                                 # retires one of phase 10's chunks
+CPU_WORKERS = 2                # processes that run the CPU reference runs meanwhile
+CPU_THREADS = 1                # torch threads in each (the card's host is shared)
+CHECKS = None                  # the CpuChecks of this run (main)
 
 
 def phase(name):
@@ -360,6 +405,22 @@ def time_cuda(fn, reps, flush):
     return float(np.median(times))
 
 
+def kernel_rows(prof):
+    """[(device us, launches, name)] per kernel name of a finished
+    torch.profiler run, summed from the profiler's raw device events: its
+    own post-processing (key_averages) takes ~0.35 ms per kernel on the
+    card's host, a minute for one config #3 window.  A torch without these
+    events fails here."""
+    agg = {}
+    for e in prof.profiler.kineto_results.events():
+        if not str(e.device_type()).endswith("CUDA"):
+            continue
+        row = agg.setdefault(e.name(), [0.0, 0])
+        row[0] += e.duration_ns() / 1e3
+        row[1] += 1
+    return [(us, n, name) for name, (us, n) in agg.items() if us > 0]
+
+
 def profile_device(step, st, steps, unit, warm=4):
     """``steps`` calls of ``step`` (one batch step or one window) after
     ``warm`` more, under torch.profiler: wall and device time per call, the
@@ -377,14 +438,7 @@ def profile_device(step, st, steps, unit, warm=4):
                 st = step(st)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    rows = []
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(evt, "cuda_time_total", 0)
-        if getattr(evt, "device_type", None) is not None and \
-                str(evt.device_type).endswith("CUDA") and dev_us > 0:
-            rows.append((dev_us, evt.count, evt.key))
+    rows = kernel_rows(prof)
     print(f"   {steps} {unit}s after {warm} (cut; see PROFILE_STEPS): wall "
           f"{wall / steps * 1e3:.3f} ms/{unit}")
     if not rows:
@@ -416,16 +470,24 @@ def lane_inputs(rows, ic, seed, device):
     return [torch.as_tensor(x, device=device) for x in (valid, time_, kind, stamp, timer)]
 
 
-def counted_run(sel, run):
+def counted_run(sel, run, pause=False):
     """``run()`` with both entries' launch counts set to 0 just before it;
-    returns its result, its wall seconds and the counts just after."""
+    returns its result, its wall seconds and the counts just after.  With
+    ``pause`` the CPU workers are stopped while it runs; else the reference
+    runs still pending at its start and end are printed, the load it shared
+    the host with."""
     sel.select_events.launches = 0
     sel.select_queue_events.launches = 0
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    pending = CHECKS.pending() if CHECKS else 0
+    with CHECKS.paused() if pause and CHECKS else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print("   CPU workers: " + ("stopped during this run" if pause and CHECKS else
+                                f"{pending} reference runs pending at this run's start, "
+                                f"{CHECKS.pending() if CHECKS else 0} at its end"))
     return out, wall, {"select_events": sel.select_events.launches,
                        "select_queue_events": sel.select_queue_events.launches}
 
@@ -445,6 +507,100 @@ def fleet_line(st, wall, steps, unit):
           f"dropped {int(st.n_msgs_dropped.sum())}, {'queue' if hasattr(st, 'n_queue_full') else 'inbox'}"
           f"-full {int(full.sum())}, peak mem "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+
+
+def cpu_fleet(engine, p, seeds, doctor_row=None):
+    """A CPU reference run (in the worker): init_batch of ``seeds`` on the
+    serial or the lane engine (with ``doctor_row``, phase 10's doctored
+    fleet), run to completion, as to_reference leaves."""
+    from librabft_simulator_tpu_torch.convert import to_reference
+    from librabft_simulator_tpu_torch.sim import parallel_sim as P
+    from librabft_simulator_tpu_torch.sim import simulator as S
+
+    eng = P if engine == "lanes" else S
+    st = (doctored_fleet(S, p, seeds, "cpu", doctor_row) if doctor_row is not None
+          else eng.init_batch(p, seeds, device="cpu"))
+    return to_reference(eng.run_to_completion(p, st))
+
+
+def cpu_specs(engine, p, specs, chunk):
+    """A CPU reference run (in the worker) of a scenario fleet built from
+    ``specs``."""
+    from librabft_simulator_tpu_torch.convert import to_reference
+    from librabft_simulator_tpu_torch.serve import scenario as sc
+    from librabft_simulator_tpu_torch.sim import parallel_sim as P
+    from librabft_simulator_tpu_torch.sim import simulator as S
+
+    eng = P if engine == "lanes" else S
+    st = sc.init_specs(p, specs, engine=eng, device="cpu")
+    return to_reference(eng.run_to_completion(p, st, **({"chunk": chunk} if chunk else {})))
+
+
+def cpu_dedicated(p, spec):
+    """A scenario slot's dedicated static run on the CPU (in the worker): its
+    params (``to_params``), its static masks and its attack program
+    installed; every leaf but sc_*."""
+    from librabft_simulator_tpu_torch.convert import to_reference
+    from librabft_simulator_tpu_torch.sim import simulator as S
+
+    pi = spec.to_params(p)
+    eq, silent, forge = spec.byz_masks(p)
+    ded = S.init_batch(pi, [spec.seed], byz_equivocate=eq, byz_silent=silent,
+                       byz_forge_qc=forge, device="cpu")
+    ded = to_reference(S.run_to_completion(pi, spec.attack_program().install(pi, ded), chunk=32))
+    return {k: v for k, v in ded.items() if not k.startswith("sc_")}
+
+
+def _worker_init():
+    torch.set_num_threads(CPU_THREADS)
+
+
+class CpuChecks:
+    """The card-vs-CPU comparisons.  Each phase hands its card rows and the
+    CPU reference run they must equal to a pool of worker processes and
+    goes on; the card runs the later phases while the workers run the
+    references, and :meth:`finish` compares every pair in every leaf (any
+    mismatch or worker error fails the script)."""
+
+    def __init__(self):
+        import concurrent.futures
+        import multiprocessing
+
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            max_workers=CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_worker_init)
+        self.jobs = []
+
+    def submit(self, label, want, what, fn, *args):
+        """Compare ``want`` (to_reference leaves of the card's rows) with
+        ``fn(*args)`` run on a worker."""
+        self.jobs.append((label, want, what, self.pool.submit(fn, *args)))
+
+    def pending(self) -> int:
+        """Reference runs not yet finished."""
+        return sum(not fut.done() for *_, fut in self.jobs)
+
+    @contextlib.contextmanager
+    def paused(self):
+        """The worker processes stopped (SIGSTOP) for a timed run, so that it
+        has the host to itself, and resumed after it."""
+        pids = [proc.pid for proc in self.pool._processes.values()]
+        for pid in pids:
+            os.kill(pid, signal.SIGSTOP)
+        try:
+            yield
+        finally:
+            for pid in pids:
+                os.kill(pid, signal.SIGCONT)
+
+    def finish(self):
+        for label, want, what, fut in self.jobs:
+            leaves_equal(fut.result(), want, label)
+            print(f"   {label}: {what} equal in every leaf ({len(want)} leaves)")
+        self.jobs = []
+
+    def close(self):
+        self.pool.shutdown(wait=True, cancel_futures=True)
 
 
 def leaves_equal(ref: dict, got: dict, label):
@@ -473,11 +629,24 @@ def main(argv=None):
     ap.add_argument("--sc5_clock3", type=int, nargs=2, default=(85, 95),
                     help="range of the per-slot horizons of phase 14's 3-chain slots "
                          "(the 3-chain rule commits a round later)")
+    ap.add_argument("--ring5_clock", type=int, default=40,
+                    help="horizon of phase 15's config #5 fleet under the device wrap")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
         return 2
+    global CHECKS
+    checks = CHECKS = CpuChecks()
+    try:
+        return run_phases(args, checks)
+    finally:
+        checks.close()
 
+
+def run_phases(args, checks):
+    """Phases 1-15 (the module docstring), then the card-vs-CPU
+    comparisons that ``checks`` ran meanwhile, the kernel line, the card and
+    the result line."""
     from librabft_simulator_tpu_torch.convert import to_reference
     from librabft_simulator_tpu_torch.core.types import KIND_TIMER, SimParams
     from librabft_simulator_tpu_torch.ops import select_events as sel
@@ -485,7 +654,7 @@ def main(argv=None):
     from librabft_simulator_tpu_torch.sim import simulator as S
 
     dev = torch.device("cuda")
-    t = phase("1. card")
+    t_start = t = phase("1. card")
     smi = nvidia_smi()
     print(f"   nvidia-smi: {smi}")
     print(f"   torch: {torch.__version__} cuda {torch.version.cuda} "
@@ -635,9 +804,10 @@ def main(argv=None):
         print(f"   cut: max_clock {FULL_CLOCK} -> {args.max_clock}")
     torch.cuda.reset_peak_memory_stats()
     st, wall, launches = counted_run(sel, lambda: S.run_to_completion(
-        p, S.init_batch(p, seeds, device="cuda"), batched=True))
+        p, S.init_batch(p, seeds, device="cuda"), chunk=SERIAL_CHUNK, batched=True))
     steps = S.run_to_completion.last_steps
-    print(f"   config #2: n=4 uniform queue_cap={p.queue_cap} B={b} max_clock={p.max_clock}")
+    print(f"   config #2: n=4 uniform queue_cap={p.queue_cap} B={b} max_clock={p.max_clock}, "
+          f"a halt read every {SERIAL_CHUNK} steps")
     fleet_line(st, wall, steps, "batch step")
     print(f"   launches {launches} (batch steps {steps})")
     if (not bool(st.halted.all()) or steps <= 0 or launches["select_events"]
@@ -652,11 +822,9 @@ def main(argv=None):
     t = phase("5. card vs CPU (config #2)")
     rng = np.random.default_rng(0)
     picks = sorted({0, b - 1, *rng.choice(np.arange(1, b - 1), 2, replace=False).tolist()})
-    gpu = to_reference(S.select_instances(st, picks))
-    cpu_st = S.run_to_completion(p, S.init_batch(p, seeds[picks], device="cpu"))
-    leaves_equal(to_reference(cpu_st), gpu, "card vs CPU")
-    print(f"   instances {picks}: every leaf equal ({len(gpu)} leaves)")
-    del st, gpu, cpu_st
+    checks.submit("card vs CPU (config #2)", to_reference(S.select_instances(st, picks)),
+                  f"instances {picks}", cpu_fleet, "serial", p, seeds[picks])
+    del st
     done("card vs CPU (config #2)", t)
 
     t = phase("6. where the time goes (config #2)")
@@ -673,15 +841,17 @@ def main(argv=None):
     for num, (name, (pl, bl)) in zip((8, 9), lane_cfgs.items()):
         t = phase(f"{num}. {name} on the lane engine")
         by_path[f"{name} lanes"], window_ms[name] = lane_phase(
-            name, pl, bl, sel, P, to_reference, profile=name == "config #3")
+            name, pl, bl, sel, P, to_reference, profile=name == "config #3", checks=checks,
+            pause=name == "config #5")
         done(f"{name} on the lane engine", t)
+    peak9 = torch.cuda.max_memory_allocated()  # phase 9's run (its CPU check uses no card)
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         pt = dataclasses.replace(p, telemetry=True, watchdog=True)
         t = phase("10. telemetry and watchdog, serial (config #2)")
-        by_path["config #2 serial, planes on"], final, mid, path = serial_planes_phase(
-            pt, b, sel, to_reference, serial_ms, tmp)
+        (by_path["config #2 serial, planes on"], final, mid, mid_steps, path, rows10,
+         planes_ms) = serial_planes_phase(pt, b, sel, to_reference, serial_ms, tmp, checks)
         done("telemetry and watchdog, serial (config #2)", t)
 
         t = phase("11. config #5 on the lane engine, planes and stream on")
@@ -690,36 +860,43 @@ def main(argv=None):
         with TimelineRecorder(p5t, total_instances=10000,
                               out=os.path.join(tmp, "config5.ndjson")) as rec:
             by_path["config #5 lanes, planes on"], ms = lane_phase(
-                "config #5", p5t, 10000, sel, P, to_reference, profile=False, stream=rec)
+                "config #5", p5t, 10000, sel, P, to_reference, profile=False, checks=checks,
+                stream=rec)
         print(f"   ms per window: planes on {ms:.3f}, off {window_ms['config #5']:.3f} "
-              f"(phase 9); stream: {len(rec.rows)} chunks, final digest "
-              f"{json.dumps(rec.summary()['final'])}")
-        dt5, du5 = S.tables(p5t, "cuda")
-        planes_turns(lambda pw, x: P.step(pw, dt5, du5, P.d_min_of(pw), x, False, False),
-                     p5t, P.init_batch(p5t, np.arange(10000, dtype=np.uint32), device="cuda"),
-                     4, 2, "window")
+              f"(phase 9, the same fleet with the planes off); stream: {len(rec.rows)} "
+              f"chunks, final digest {json.dumps(rec.summary()['final'])}")
         done("config #5 on the lane engine, planes and stream on", t)
 
         t = phase("12. checkpoint round trip on the card (config #2, planes on)")
-        by_path["config #2 checkpoint round trip"] = checkpoint_phase(
-            pt, sel, to_reference, final, mid, path)
+        checkpoint_phase(pt, to_reference, mid, path)
         done("checkpoint round trip on the card (config #2, planes on)", t)
+        del mid
+
+        t = phase("13. scenario and adversary planes, serial (config #2's width)")
+        p13 = dataclasses.replace(p, scenario=True, adversary=True, adv_windows=4)
+        by_path["config #2 serial, scenario and adversary"] = serial_scenario_phase(
+            p13, b, {3: args.sc_clock, 2: args.sc_clock}, sel, to_reference, serial_ms, checks)
+        done("scenario and adversary planes, serial (config #2's width)", t)
+
+        t = phase("14. scenario and adversary planes, lanes (config #5's shapes)")
+        p14 = dataclasses.replace(p5, scenario=True, adversary=True, adv_windows=4,
+                                  telemetry=True)
+        by_path["config #5 lanes, scenario and adversary"] = lane_scenario_phase(
+            p14, 10000, {2: args.sc5_clock, 3: args.sc5_clock3}, sel, to_reference,
+            window_ms["config #5"], checks)
+        done("scenario and adversary planes, lanes (config #5's shapes)", t)
+
+        t = phase("15. sharded runtime and runtime ledger (configs #2 and #5)")
+        by_path.update(sharded_phase(args, pt, p5, b, sel, to_reference, final, rows10, path,
+                                     mid_steps, planes_ms, window_ms["config #5"], peak9, tmp,
+                                     checks))
+        done("sharded runtime and runtime ledger (configs #2 and #5)", t)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    t = phase("13. scenario and adversary planes, serial (config #2's width)")
-    p13 = dataclasses.replace(p, scenario=True, adversary=True, adv_windows=4)
-    by_path["config #2 serial, scenario and adversary"] = serial_scenario_phase(
-        p13, b, {3: args.sc_clock, 2: args.sc_clock}, sel, to_reference, serial_ms)
-    done("scenario and adversary planes, serial (config #2's width)", t)
-
-    t = phase("14. scenario and adversary planes, lanes (config #5's shapes)")
-    p14 = dataclasses.replace(p5, scenario=True, adversary=True, adv_windows=4,
-                              telemetry=True)
-    by_path["config #5 lanes, scenario and adversary"] = lane_scenario_phase(
-        p14, 10000, {2: args.sc5_clock, 3: args.sc5_clock3}, sel, to_reference,
-        window_ms["config #5"])
-    done("scenario and adversary planes, lanes (config #5's shapes)", t)
+    t = phase("card vs CPU: the reference runs of phases 5-15 on the CPU worker")
+    checks.finish()
+    done("card vs CPU", t)
 
     kernels = []
     for name in ("select_queue_events", "select_events"):
@@ -728,6 +905,7 @@ def main(argv=None):
                             launches=sum(counts.values()), launches_by_path=counts,
                             library_ms=None, **rows[name]))
     print(json.dumps({"kernels": kernels}))
+    print(f"   total: {time.perf_counter() - t_start:.3f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -832,8 +1010,9 @@ def safety_lines(label, specs, safe, cc):
           f"(per-slot honest masks); safe fraction: {', '.join(parts)}")
 
 
-def serial_scenario_phase(p, b, clocks, sel, to_reference, serial_ms):
+def serial_scenario_phase(p, b, clocks, sel, to_reference, serial_ms, checks):
     """Phase 13 (see the module docstring); returns the select launches."""
+    from librabft_simulator_tpu_torch.parallel import mesh as M
     from librabft_simulator_tpu_torch.serve import scenario as sc
     from librabft_simulator_tpu_torch.sim import byzantine as B
     from librabft_simulator_tpu_torch.sim import simulator as S
@@ -853,6 +1032,7 @@ def serial_scenario_phase(p, b, clocks, sel, to_reference, serial_ms):
           f"and init_specs on the card {time.perf_counter() - t0:.3f} s")
     before = adv_leaves(st0)
     flags = S.byz_flags(p, st0)
+    prof0 = M.rows_of(st0, 0, b, "cuda")  # the profiles' fleet: a copy of the unrun one
     torch.cuda.reset_peak_memory_stats()
     # A halt read every 64 steps: the fleet runs as long as its busiest slot.
     st, wall, launches = counted_run(sel, lambda: S.run_to_completion(
@@ -881,37 +1061,28 @@ def serial_scenario_phase(p, b, clocks, sel, to_reference, serial_ms):
         raise AssertionError(f"phase 13: {len(picks)} picked slots, want at least 6")
     gpu = to_reference(S.select_instances(st, picks))
     del st
-    cpu = to_reference(S.run_to_completion(
-        p, sc.init_specs(p, [specs[i] for i in picks], device="cpu"), chunk=32))
-    leaves_equal(cpu, gpu, "phase 13 card vs CPU")
-    print(f"   card vs CPU: slots {picks} (horizons {[specs[i].max_clock for i in picks]}, "
-          f"events {ev[picks].tolist()}, commits {cc[picks].sum(axis=1).tolist()}; covering "
-          f"{', '.join(feats)}) equal in every leaf ({len(gpu)} leaves), "
-          f"{time.perf_counter() - t:.3f} s")
-    t = time.perf_counter()
+    checks.submit("phase 13 card vs CPU", gpu,
+                  f"slots {picks} (horizons {[specs[i].max_clock for i in picks]}, events "
+                  f"{ev[picks].tolist()}, commits {cc[picks].sum(axis=1).tolist()}; covering "
+                  f"{', '.join(feats)})", cpu_specs, "serial", p, [specs[i] for i in picks], 32)
     for j, i in enumerate(picks):
-        spec = specs[i]
-        pi = spec.to_params(p)
-        eq, silent, forge = spec.byz_masks(p)
-        ded = S.init_batch(pi, [spec.seed], byz_equivocate=eq, byz_silent=silent,
-                           byz_forge_qc=forge, device="cpu")
-        ded = to_reference(S.run_to_completion(pi, spec.attack_program().install(pi, ded),
-                                               chunk=32))
-        leaves_equal({k: v for k, v in ded.items() if not k.startswith("sc_")},
-                     {k: v[j:j + 1] for k, v in gpu.items() if not k.startswith("sc_")},
-                     f"phase 13 slot {i} vs its dedicated run")
-    print(f"   each picked slot equals its dedicated static run (to_params + install) on "
-          f"the CPU in every leaf but sc_* ({time.perf_counter() - t:.3f} s)")
+        checks.submit(f"phase 13 slot {i} vs its dedicated static run (to_params + install), "
+                      "every leaf but sc_*",
+                      {k: v[j:j + 1] for k, v in gpu.items() if not k.startswith("sc_")},
+                      f"slot {i}", cpu_dedicated, p, specs[i])
+    print(f"   card vs CPU and dedicated static runs of slots {picks}: on the CPU worker "
+          f"({time.perf_counter() - t:.3f} s)")
     dt, du = S.tables(p, "cuda")
-    fleet = sc.init_specs(p, specs, device="cuda")  # the second profile goes on from the first's
-    for fl in (flags, (False, False)):
-        print(f"   profile, byz_flags {fl} (beside phase 6's, planes off):")
-        fleet = profile_device(lambda x: S.step(p, dt, du, x, *fl), fleet, PROFILE_STEPS,
-                               "batch step")
+    print(f"   profile, byz_flags {flags} (beside phase 6's, planes off):")
+    st = profile_device(lambda x: S.step(p, dt, du, x, *flags), prof0, PROFILE_STEPS,
+                        "batch step")
+    print("   profile, the same fleet going on, byz_flags (False, False):")
+    profile_device(lambda x: S.step(p, dt, du, x, False, False), st, PROFILE_STEPS,
+                   "batch step", warm=1)
     return launches["select_queue_events"]
 
 
-def lane_scenario_phase(p, b, clocks, sel, to_reference, window_ms):
+def lane_scenario_phase(p, b, clocks, sel, to_reference, window_ms, checks):
     """Phase 14 (see the module docstring); returns the select launches."""
     from librabft_simulator_tpu_torch.serve import scenario as sc
     from librabft_simulator_tpu_torch.sim import byzantine as B
@@ -951,30 +1122,23 @@ def lane_scenario_phase(p, b, clocks, sel, to_reference, window_ms):
         raise AssertionError("phase 14: device safety check != reference")
     cc = st.ctx.commit_count.cpu().numpy()
     safety_lines("phase 14", specs, safe, cc)
-    t = time.perf_counter()
     ev = st.n_events.cpu().numpy()
     chains = np.asarray([s.commit_chain for s in specs])
     # The slots with the most commits on each chain, and the busiest slot.
     picks = [int(np.argmax(np.where(chains == c, cc.sum(axis=1), -1))) for c in (3, 2)]
     picks = sorted({*picks, int(ev.argmax())} | ({b - 1} if int(ev.argmax()) in picks else set()))
-    gpu = to_reference(S.select_instances(st, picks))
+    checks.submit("phase 14 card vs CPU", to_reference(S.select_instances(st, picks)),
+                  f"slots {picks} (chains {chains[picks].tolist()}, events "
+                  f"{ev[picks].tolist()}, commits {cc[picks].sum(axis=1).tolist()})",
+                  cpu_specs, "lanes", p, [specs[i] for i in picks], None)
     del st
-    cpu = to_reference(P.run_to_completion(
-        p, sc.init_specs(p, [specs[i] for i in picks], engine=P, device="cpu")))
-    leaves_equal(cpu, gpu, "phase 14 card vs CPU")
-    print(f"   card vs CPU: slots {picks} (chains {chains[picks].tolist()}, events "
-          f"{ev[picks].tolist()}, commits {cc[picks].sum(axis=1).tolist()}) equal in every "
-          f"leaf ({len(gpu)} leaves), {time.perf_counter() - t:.3f} s")
     dt, du = S.tables(p, "cuda")
-    p_off = dataclasses.replace(p, scenario=False, adversary=False, telemetry=False)
-    for label, pw, fl in (("this fleet, byz_flags " + str(flags), p, flags),
-                          ("config #5 as phase 9, planes off", p_off, (False, False))):
-        print(f"   profile, {label}:")
-        fleet = (sc.init_specs(p, specs, engine=P, device="cuda") if pw is p
-                 else P.init_batch(pw, np.arange(b, dtype=np.uint32), device="cuda"))
-        profile_device(lambda x: P.step(pw, dt, du, P.d_min_of(pw), x, *fl), fleet,
-                       PROFILE_WINDOWS, "window", warm=2)
-        del fleet
+    # A fresh fleet, not a copy kept through the run: its payload inboxes
+    # alone take ~35 GB.
+    print(f"   profile, this fleet, byz_flags {flags}:")
+    profile_device(lambda x: P.step(p, dt, du, P.d_min_of(p), x, *flags),
+                   sc.init_specs(p, specs, engine=P, device="cuda"), PROFILE_WINDOWS,
+                   "window", warm=2)
     return launches["select_queue_events"]
 
 
@@ -990,7 +1154,8 @@ def fsweep_phase(args, sel, b):
     assert mode == "sweep" and n4 == b
     p4 = dataclasses.replace(p4, max_clock=args.byz_clock)
     print(f"   cut: max_clock {FULL_CLOCK} -> {p4.max_clock}; n={p4.n_nodes} "
-          f"{p4.delay_kind} queue_cap={p4.queue_cap} B={n4}, f in (0, 1), equivocate")
+          f"{p4.delay_kind} queue_cap={p4.queue_cap} B={n4}, f in (0, 1), equivocate, a halt "
+          f"read every {SWEEP_CHUNK} steps")
     finals = []
     run = S.run_to_completion
 
@@ -1001,7 +1166,8 @@ def fsweep_phase(args, sel, b):
 
     S.run_to_completion = recording
     try:
-        res, wall, launches = counted_run(sel, lambda: B.f_sweep(p4, n4, f_values=[0, 1]))
+        res, wall, launches = counted_run(sel, lambda: B.f_sweep(p4, n4, f_values=[0, 1],
+                                                                 chunk=SWEEP_CHUNK))
     finally:
         S.run_to_completion = run
     steps = sum(s for _, s in finals)
@@ -1040,11 +1206,12 @@ def fsweep_phase(args, sel, b):
     return launches["select_queue_events"]
 
 
-def lane_phase(name, p, b, sel, P, to_reference, profile, stream=None):
-    """One lane config at full width: run (through ``stream`` if given),
-    check launches (and, with the planes on, their invariants), compare a
-    few instances with the CPU, optionally profile; returns the select
-    launches and the ms per window."""
+def lane_phase(name, p, b, sel, P, to_reference, profile, checks, stream=None, pause=False):
+    """One lane config at full width: run (through ``stream`` if given; with
+    the CPU workers stopped if ``pause``), check launches (and, with the
+    planes on, their invariants), compare a few instances with the CPU,
+    optionally profile; returns the select launches and the ms per
+    window."""
     from librabft_simulator_tpu_torch.sim import simulator as S
 
     print(f"   {name}: n={p.n_nodes} {p.delay_kind} drop={p.drop_prob} "
@@ -1053,10 +1220,12 @@ def lane_phase(name, p, b, sel, P, to_reference, profile, stream=None):
           f"cut: max_clock {FULL_CLOCK} -> {p.max_clock}")
     seeds = np.arange(b, dtype=np.uint32)
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     st, wall, launches = counted_run(sel, lambda: P.run_to_completion(
-        p, P.init_batch(p, seeds, device="cuda"), batched=True, stream=stream))
+        p, P.init_batch(p, seeds, device="cuda"), batched=True, stream=stream), pause=pause)
     windows = P.run_to_completion.last_steps
     fleet_line(st, wall, windows, "window")
+    print(f"   allocated before the run: {base / 1e9:.3f} GB")
     k = P.drain_of(p)
     print(f"   launches {launches} (windows {windows} x drain {k} = {windows * k})")
     if (not bool(st.halted.all()) or launches["select_events"]
@@ -1069,21 +1238,18 @@ def lane_phase(name, p, b, sel, P, to_reference, profile, stream=None):
     if name == "config #5":
         require_paths(p, st, name)
 
-    t = time.perf_counter()
     rng = np.random.default_rng(1)
     picks = sorted({0, b - 1, *rng.choice(np.arange(1, b - 1), LANE_PICKS - 2,
                                           replace=False).tolist()})
-    gpu = to_reference(S.select_instances(st, picks))
+    checks.submit(f"{name} card vs CPU" + (", planes on" if p.telemetry else ""),
+                  to_reference(S.select_instances(st, picks)), f"instances {picks}",
+                  cpu_fleet, "lanes", p, seeds[picks])
     del st
-    cpu = to_reference(P.run_to_completion(p, P.init_batch(p, seeds[picks], device="cpu")))
-    leaves_equal(cpu, gpu, f"{name} card vs CPU")
-    print(f"   card vs CPU: instances {picks} equal in every leaf ({len(gpu)} leaves), "
-          f"{time.perf_counter() - t:.3f} s")
     if profile:
         dt, du = S.tables(p, "cuda")
         profile_device(lambda x: P.step(p, dt, du, P.d_min_of(p), x, False, False),
                        P.init_batch(p, seeds, device="cuda"), PROFILE_WINDOWS, "window",
-                       warm=2)
+                       warm=1)
     return launches["select_queue_events"], wall / windows * 1e3
 
 
@@ -1177,7 +1343,7 @@ def doctored_fleet(S, p, seeds, device, row):
         log_round=planted(cx.log_round, (row, 1, 0), 999)))
 
 
-def serial_planes_phase(p, b, sel, to_reference, serial_ms, tmp):
+def serial_planes_phase(p, b, sel, to_reference, serial_ms, tmp, checks):
     """Config #2 with both planes on through run_to_completion(stream=):
     checks and prints as the module docstring says (phase 10); returns the
     select launches and the final state's leaves."""
@@ -1192,29 +1358,30 @@ def serial_planes_phase(p, b, sel, to_reference, serial_ms, tmp):
 
     seeds = np.arange(b, dtype=np.uint32)
     path = os.path.join(tmp, "config2.npz")
-    # Two calls with one recorder: the first chunk, then the rest.  Between
-    # them the state is saved for phase 12 (outside the timed calls); the
-    # second call continues the same state in memory.
+    # Two calls with one recorder: the first CKPT_CHUNKS chunks, then the
+    # rest.  Between them the state is saved for phases 12 and 15 (outside
+    # the timed calls); the second call continues the same state in memory.
+    # The CPU workers are stopped during both.
     with stream.TimelineRecorder(p, total_instances=b,
                                  out=os.path.join(tmp, "config2.ndjson")) as rec:
         mid, wall1, launches1 = counted_run(sel, lambda: S.run_to_completion(
-            p, doctored_fleet(S, p, seeds, "cuda", DOCTOR_I), batched=True, stream=rec,
-            max_chunks=1))
+            p, doctored_fleet(S, p, seeds, "cuda", DOCTOR_I), chunk=SERIAL_CHUNK,
+            batched=True, stream=rec, max_chunks=CKPT_CHUNKS), pause=True)
         steps1 = S.run_to_completion.last_steps
         t0 = time.perf_counter()
         ckpt.save(path, mid)
         save_s = time.perf_counter() - t0
         mid_ref = to_reference(mid)
         st, wall2, launches2 = counted_run(sel, lambda: S.run_to_completion(
-            p, mid, batched=True, stream=rec))
+            p, mid, chunk=SERIAL_CHUNK, batched=True, stream=rec), pause=True)
     del mid
     steps, wall = steps1 + S.run_to_completion.last_steps, wall1 + wall2
     launches = {k: launches1[k] + launches2[k] for k in launches1}
     fleet_line(st, wall, steps, "batch step")
     print(f"   ms per batch step: planes on {wall / steps * 1e3:.3f}, off {serial_ms:.3f} "
           f"(phase 4); launches {launches} (batch steps {steps}); stream: "
-          f"{len(rec.rows)} chunks of {S.RUN_CHUNK} steps, one [13] digest fetch each; "
-          f"saved after the first chunk for phase 12 in {save_s:.3f} s "
+          f"{len(rec.rows)} chunks of {SERIAL_CHUNK} steps, one [13] digest fetch each; "
+          f"saved after step {steps1} for phases 12 and 15 in {save_s:.3f} s "
           f"({os.path.getsize(path) / 1e6:.1f} MB .npz)")
     if (not bool(st.halted.all()) or launches["select_events"]
             or launches["select_queue_events"] != steps):
@@ -1237,49 +1404,172 @@ def serial_planes_phase(p, b, sel, to_reference, serial_ms, tmp):
           f"{int(wd[DOCTOR_I, stream.WD_ROUND_REGRESS])}, on no other instance")
     final_ref = to_reference(st)
 
-    t = time.perf_counter()
     rng = np.random.default_rng(2)
     picks = sorted({0, DOCTOR_I, b - 1, int(rng.integers(4, b - 1))})
-    gpu = to_reference(S.select_instances(st, picks))
+    checks.submit("config #2 planes on, card vs CPU", to_reference(S.select_instances(st, picks)),
+                  f"instances {picks} (the planes included)", cpu_fleet, "serial", p,
+                  seeds[picks], picks.index(DOCTOR_I))
     del st
-    cpu = to_reference(S.run_to_completion(
-        p, doctored_fleet(S, p, seeds[picks], "cpu", picks.index(DOCTOR_I))))
-    leaves_equal(cpu, gpu, "config #2 planes on, card vs CPU")
-    print(f"   card vs CPU: instances {picks} equal in every leaf ({len(gpu)} leaves, the "
-          f"planes included), {time.perf_counter() - t:.3f} s")
     dt, du = S.tables(p, "cuda")
     profile_device(lambda x: S.step(p, dt, du, x, False, False),
                    S.init_batch(p, seeds, device="cuda"), PROFILE_STEPS, "batch step")
     planes_turns(lambda pw, x: S.step(pw, dt, du, x, False, False), p,
-                 S.init_batch(p, seeds, device="cuda"), 32, 16, "batch step")
-    return launches["select_queue_events"], final_ref, mid_ref, path
+                 S.init_batch(p, seeds, device="cuda"), 8, 4, "batch step")
+    return (launches["select_queue_events"], final_ref, mid_ref, steps1, path, rec.rows,
+            wall / steps * 1e3)
 
 
-def checkpoint_phase(p, sel, to_reference, final_ref, mid_ref, path):
-    """Phase 12: phase 10's checkpoint (its fleet after one chunk) is loaded
-    on the card and resumed; the result must equal phase 10's run in every
-    leaf, and the checkpoint loaded on the CPU the state it was saved from.
-    Returns the select launches."""
+def checkpoint_phase(p, to_reference, mid_ref, path):
+    """Phase 12: phase 10's checkpoint (its fleet after CKPT_CHUNKS chunks),
+    loaded on the card and on the CPU, must equal the state it was saved
+    from in every leaf.  Phase 15 resumes it (through load_sharded) and holds
+    the result to phase 10's uninterrupted run."""
     from librabft_simulator_tpu_torch.sim import checkpoint as ckpt
-    from librabft_simulator_tpu_torch.sim import simulator as S
 
     t0 = time.perf_counter()
     back = ckpt.load(path, p, device="cuda")
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
-    fin, wall, launches = counted_run(sel, lambda: S.run_to_completion(p, back, batched=True))
-    steps = S.run_to_completion.last_steps
-    print(f"   load on the card {load_s:.3f} s ({os.path.getsize(path) / 1e6:.1f} MB .npz), "
-          f"resume: {steps} batch steps, launches {launches}, wall {wall:.3f} s")
-    if launches["select_queue_events"] != steps or launches["select_events"]:
-        raise AssertionError(f"checkpoint round trip: launches {launches}, steps {steps}")
-    leaves_equal(final_ref, to_reference(fin), "saved, loaded and resumed vs uninterrupted")
-    print(f"   resumed run equals phase 10's uninterrupted run in every leaf ({len(final_ref)})")
-    del back, fin
+    leaves_equal(mid_ref, to_reference(back), "card checkpoint loaded on the card")
+    print(f"   load on the card {load_s:.3f} s ({os.path.getsize(path) / 1e6:.1f} MB .npz): "
+          f"equals the state it was saved from in every leaf ({len(mid_ref)}); phase 15 "
+          "resumes it")
+    del back
     leaves_equal(mid_ref, to_reference(ckpt.load(path, p, device="cpu")),
                  "card checkpoint loaded on the CPU")
     print("   the card's checkpoint loaded on the CPU equals the state it was saved from")
-    return launches["select_queue_events"]
+
+
+def ring_checks(ring, lg, label):
+    """The device wrap's host reads from the ledger: fewer ring fetches than
+    retired chunks, and fewer waits on the device (ring fetches and halt
+    reads whose copy had not landed) than retired chunks; prints them, the
+    halt reads (one per chunk after an outer call's first) and the seconds
+    of each kind of poll span."""
+    print(f"   ledger ring_stats: {json.dumps(ring)}")
+    for kind in ("poll", "halt_poll"):
+        durs = [sp.dur_s for sp in lg.spans
+                if sp.kind == kind and ring and sp.attrs.get("run") == ring["run"]]
+        print(f"   {kind} spans of this run: {len(durs)}, {sum(durs):.6f} s in all")
+    if (ring is None or not ring["polls_per_retired_chunk"] < 1
+            or not ring["waits_per_retired_chunk"] < 1):
+        raise AssertionError(f"{label}: ring_stats {ring}")
+
+
+def sharded_phase(args, p10, p5, b, sel, to_reference, final_ref, rows10, path, mid_steps,
+                  planes_ms, window_ms, peak9, tmp, checks):
+    """Phase 15 (see the module docstring); returns the select launches of
+    both paths."""
+    from librabft_simulator_tpu_torch.parallel import mesh as M
+    from librabft_simulator_tpu_torch.parallel import sharded as SH
+    from librabft_simulator_tpu_torch.sim import checkpoint as ckpt
+    from librabft_simulator_tpu_torch.sim import parallel_sim as P
+    from librabft_simulator_tpu_torch.sim import simulator as S
+    from librabft_simulator_tpu_torch.telemetry import ledger, stream
+
+    lg = ledger.get()
+    card = torch.device("cuda", 0)
+    out = {}
+
+    # Serial: phase 12's checkpoint on a 3-shard mesh, device wrap, macro-steps.
+    ps = dataclasses.replace(p10, wrap="device", ring_k=RING_K, macro_k=MACRO_K)
+    chunk = RING_CHUNK
+    mesh = M.make_mesh(SHARDS, 1, devices=[card] * SHARDS)
+    t0 = time.perf_counter()
+    st0, n_valid = ckpt.load_sharded(path, ps, mesh)
+    torch.cuda.synchronize()
+    total = SH.batch_size(st0)
+    print(f"   serial: config #2 with both planes (phase 10) from its step {mid_steps}, "
+          f"wrap=device ring_k={RING_K} macro_k={MACRO_K} chunk={chunk} macro-steps "
+          f"({chunk * MACRO_K} events); load_sharded onto {SHARDS} shards of one card: "
+          f"{n_valid} instances padded to {total}, {time.perf_counter() - t0:.3f} s")
+    if n_valid != b or total % SHARDS or total - b >= SHARDS:
+        raise AssertionError(f"phase 15: load_sharded gave {total} rows, {n_valid} valid")
+    rec = stream.TimelineRecorder(ps, out=os.path.join(tmp, "sharded.ndjson"))
+    with rec:
+        st, wall, launches = counted_run(sel, lambda: SH.run_sharded(
+            ps, mesh, st0, num_steps=chunk * S.RUN_MAX_CHUNKS, chunk=chunk, stream=rec),
+            pause=True)
+    del st0
+    ring = lg.ring_stats()
+    pipe = lg.pipeline_stats()
+    ev_steps = SH.run_sharded.last_steps
+    print(f"   {SH.run_sharded.last_chunks} chunks, {ev_steps} event steps per shard, wall "
+          f"{wall:.3f} s: {wall / ev_steps * 1e3:.3f} ms per event step of the fleet "
+          f"({wall / ev_steps / SHARDS * 1e3:.3f} per shard), phase 10's one-shard step "
+          f"{planes_ms:.3f}; launches {launches} (event steps {ev_steps} x {SHARDS} shards)")
+    print(f"   ledger pipeline_stats: {json.dumps({k: v for k, v in pipe.items() if k != 'rows'})}")
+    if (launches["select_events"] or launches["select_queue_events"] != ev_steps * SHARDS):
+        raise AssertionError(f"phase 15 serial: launches {launches}, event steps {ev_steps}")
+    ring_checks(ring, lg, "phase 15 serial")
+    host = SH.unpad(st, n_valid)
+    del st
+    leaves_equal(final_ref, to_reference(host), "phase 15 serial vs phase 10")
+    print(f"   the {n_valid} real instances equal phase 10's final state in every leaf "
+          f"({len(final_ref)} leaves)")
+    del host
+    # Ring row r ends event step mid_steps + 16 (r + 1): every fourth one
+    # ends one of phase 10's 64-step chunks, its row (mid_steps + 16 (r + 1))
+    # / 64 - 1.
+    names = [name for name, _ in stream.DIGEST_SLOTS] + ["watchdog_flags"]
+    pads = [stream.pad_digest()] * (total - n_valid)
+    per = SERIAL_CHUNK // (chunk * MACRO_K)
+    pairs = [(r, (mid_steps + (r + 1) * chunk * MACRO_K) // SERIAL_CHUNK - 1)
+             for r in range(per - 1, len(rec.rows), per)]
+    pairs.append((len(rec.rows) - 1, len(rows10) - 1))
+    for r, j in pairs:
+        want = stream.fold_digests([rows10[j]] + pads)
+        got = {k: rec.rows[r][k] for k in names}
+        if got != {k: want[k] for k in names}:
+            raise AssertionError(f"phase 15 ring row {r} != phase 10 row {j} with padding: "
+                                 f"{got} vs {want}")
+    print(f"   ring rows {[r for r, _ in pairs]} equal phase 10's stream rows "
+          f"{[j for _, j in pairs]} folded with {len(pads)} padding digests; last: "
+          f"{json.dumps({k: rec.rows[-1][k] for k in names})}")
+    print(f"   ledger compile entries: {json.dumps(lg.compiles)}")
+    out[f"config #2 sharded, {SHARDS} shards, device wrap"] = launches["select_queue_events"]
+
+    # Lanes: config #5's shapes on one shard (the card holds the state once).
+    p15 = dataclasses.replace(p5, max_clock=args.ring5_clock, wrap="device", ring_k=RING_K)
+    mesh1 = M.make_mesh(1, 1, devices=[card])
+    seeds = np.arange(10000, dtype=np.uint32)
+    print(f"   lanes: config #5 (n=16, inbox 256, 8 lanes, drain 4, B=10000), wrap=device "
+          f"ring_k={RING_K} chunk={P.RUN_CHUNK} windows; cut: max_clock {FULL_CLOCK} -> "
+          f"{p15.max_clock}")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    rec5 = stream.TimelineRecorder(p15)
+    st, wall, launches = counted_run(sel, lambda: SH.run_sharded(
+        p15, mesh1, P.init_batch(p15, seeds, device="cuda"),
+        num_steps=P.RUN_CHUNK * P.RUN_MAX_CHUNKS, chunk=P.RUN_CHUNK, engine=P, stream=rec5),
+        pause=True)
+    peak = torch.cuda.max_memory_allocated()
+    fleet = st.shards[0]
+    windows = SH.run_sharded.last_steps
+    k = P.drain_of(p15)
+    ring = lg.ring_stats()
+    fleet_line(fleet, wall, windows, "window")
+    print(f"   ms per window {wall / windows * 1e3:.3f}, phase 9's {window_ms:.3f}; launches "
+          f"{launches} (windows {windows} x drain {k} = {windows * k}); peak {peak / 1e9:.3f} GB "
+          f"({base / 1e9:.3f} GB allocated before the run), phase 9's {peak9 / 1e9:.3f} GB")
+    if (not bool(fleet.halted.all()) or launches["select_events"]
+            or launches["select_queue_events"] != k * windows):
+        raise AssertionError(f"phase 15 lanes: launches {launches}, windows {windows}")
+    ring_checks(ring, lg, "phase 15 lanes")
+    if peak > peak9 + 1e9:
+        raise AssertionError(f"phase 15 lanes: peak {peak} B > phase 9's {peak9} B + 1 GB")
+    last = {k_: rec5.rows[-1][k_] for k_ in names}
+    want = stream.decode_digest(stream.compute_digest(p15, fleet).cpu().numpy())
+    if last != want:
+        raise AssertionError(f"phase 15 lanes: last ring row {last} != digest {want}")
+    print("   the last ring row equals compute_digest of the final state")
+    rng = np.random.default_rng(3)
+    picks = sorted({0, 9999, int(rng.integers(1, 9999))})
+    checks.submit("phase 15 lanes card vs CPU", to_reference(S.select_instances(fleet, picks)),
+                  f"instances {picks}", cpu_fleet, "lanes", p15, seeds[picks])
+    del st, fleet
+    out["config #5 lanes sharded, device wrap"] = launches["select_queue_events"]
+    return out
 
 
 if __name__ == "__main__":

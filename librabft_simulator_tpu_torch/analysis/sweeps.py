@@ -14,7 +14,11 @@ It runs on the GPU unless ``--device cpu`` is given.  ``--telemetry`` and
 ``--watchdog`` turn on the metrics plane and the consensus watchdog (each
 row gains the merged ``telemetry`` block), and ``--stream-out PATH`` streams
 each non-sweep config's per-chunk digest timeline as NDJSON to
-``PATH.<config>.ndjson`` (the row gains its ``stream`` summary).
+``PATH.<config>.ndjson`` (the row gains its ``stream`` summary).  ``--dp N``
+runs the fleet configs on an N-shard mesh through the sharded runtime
+(parallel/sharded.py: the first N CUDA devices, or N shards on the CPU with
+``--device cpu``), and ``--macro-k K`` runs the serial configs in K-event
+macro-steps.
 """
 
 from __future__ import annotations
@@ -23,7 +27,6 @@ import argparse
 import dataclasses
 import json
 import sys
-import time
 
 import numpy as np
 import torch
@@ -32,7 +35,7 @@ from ..core.types import SimParams
 from ..sim import byzantine as B
 from ..sim import parallel_sim as P
 from ..sim import simulator as S
-from ..telemetry import report as tel_report, stream as tstream
+from ..telemetry import ledger as tledger, report as tel_report, stream as tstream
 
 
 def _fleet_stats(p: SimParams, st, elapsed: float) -> dict:
@@ -62,19 +65,25 @@ def _fleet_stats(p: SimParams, st, elapsed: float) -> dict:
     return out
 
 
-def _not_ported(flag: str, where: str):
-    raise NotImplementedError(f"{flag} is not ported yet; it lands with {where}")
+def _dp_devices(device, dp: int) -> list:
+    """The devices of a dp mesh: the first ``dp`` CUDA devices, or ``dp``
+    shards on the CPU."""
+    if torch.device(device).type == "cpu":
+        return ["cpu"] * dp
+    from ..parallel.mesh import visible_devices
+    return visible_devices()[:dp]
 
 
 def run_config(p: SimParams, n_instances: int, seed0: int = 0, f: int = 0,
                byz_kind: str = "equivocate", engine=S, dp: int = 0, stream=None,
                device="cuda") -> dict:
-    """One configuration on one device: init, run to completion, fleet
-    stats (and the safe fraction when ``f > 0``).  ``stream`` (a
-    telemetry/stream.TimelineRecorder) receives the per-chunk digest and
-    the row gains its timeline summary."""
-    if dp > 0:
-        _not_ported("dp > 0 (a dp-sharded fleet)", "the multi-GPU slice")
+    """One configuration: init, run to completion, fleet stats (and the
+    safe fraction when ``f > 0``).  ``dp > 0`` runs it on a dp-shard mesh
+    through the pipelined sharded runtime (parallel/sharded.py), padded
+    with pre-halted instances, under the same RUN_CHUNK x RUN_MAX_CHUNKS
+    cap as the one-device loop.  ``stream`` (a
+    telemetry/stream.TimelineRecorder) receives the per-chunk digest on both
+    paths and the row gains its timeline summary."""
     seeds = np.arange(seed0, seed0 + n_instances, dtype=np.uint32)
     if f > 0:
         if engine is not S:
@@ -84,13 +93,31 @@ def run_config(p: SimParams, n_instances: int, seed0: int = 0, f: int = 0,
         st = B.init_fault_batch(p, seeds, f, byz_kind, device=device)
     else:
         st = engine.init_batch(p, seeds, device=device)
-    t0 = time.perf_counter()
-    st = engine.run_to_completion(p, st, batched=True, stream=stream)
-    if st.clock.is_cuda:
-        torch.cuda.synchronize(st.clock.device)
-    out = _fleet_stats(p, st, time.perf_counter() - t0)
+    if dp > 0:
+        from ..parallel import mesh as mesh_ops, sharded
+
+        mesh = mesh_ops.make_mesh(n_dp=dp, n_mp=1, devices=_dp_devices(device, dp))
+        chunk = engine.RUN_CHUNK
+        with tledger.get().span(tledger.RUN, what="sweep_config", dp=dp) as sp:
+            st = sharded.run_sharded(p, mesh, st, num_steps=chunk * engine.RUN_MAX_CHUNKS,
+                                     chunk=chunk, engine=engine, stream=stream)
+            # The pipelined loop returns with its last chunk possibly still
+            # queued: synchronize before the clock is read.
+            for d in set(mesh.flat):
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
+        if isinstance(st, mesh_ops.ShardedState):
+            st = mesh_ops.concat(st.shards, "cpu")
+    else:
+        with tledger.get().span(tledger.RUN, what="sweep_config") as sp:
+            st = engine.run_to_completion(p, st, batched=True, stream=stream)
+            if st.clock.is_cuda:
+                torch.cuda.synchronize(st.clock.device)
+    out = _fleet_stats(p, st, sp.dur_s)
     if stream is not None:
         out["stream"] = stream.summary()
+    if dp > 0:
+        out["dp"] = dp
     if f > 0:
         honest = np.arange(p.n_nodes) >= f
         out["f"] = f
@@ -131,18 +158,19 @@ def run_all(scale: float = 1.0, out_path: str | None = None,
     """Every BASELINE configuration in turn; config #4 is an f-sweep over
     f in [0, n/3].  ``telemetry`` / ``watchdog`` turn the planes on in every
     config; ``stream_out`` streams every non-sweep config's digest timeline
-    to ``{stem}.{config}.ndjson`` and attaches its summary to the row."""
-    for on, flag, where in (
-            (dp > 0, "--dp", "the multi-GPU slice"),
-            (macro_k > 0, "--macro-k", "the sharded-runtime slice")):
-        if on:
-            _not_ported(flag, where)
+    to ``{stem}.{config}.ndjson`` and attaches its summary to the row.
+    ``dp > 0`` runs the fleet configs on a dp mesh (the f-sweep stays on one
+    device); ``macro_k > 0`` arms the serial engine's K-event macro-steps on
+    the serial configs (the lane engine refuses macro_k; the budget stays
+    RUN_CHUNK x RUN_MAX_CHUNKS macro-steps)."""
     results = {}
     for name, (p, n, f_mode) in baseline_configs(scale).items():
         if telemetry:
             p = dataclasses.replace(p, telemetry=True)
         if watchdog:
             p = dataclasses.replace(p, watchdog=True)
+        if macro_k > 0 and f_mode != "parallel":
+            p = dataclasses.replace(p, macro_k=macro_k)
         if f_mode == "sweep":
             results[name] = [
                 dataclasses.asdict(r)
@@ -157,7 +185,7 @@ def run_all(scale: float = 1.0, out_path: str | None = None,
                     p, out=f"{stem}.{name}.ndjson", meta={"config": name})
             try:
                 results[name] = run_config(
-                    p, n, engine=P if f_mode == "parallel" else S, stream=stream,
+                    p, n, engine=P if f_mode == "parallel" else S, dp=dp, stream=stream,
                     device=device)
             finally:
                 if stream is not None:
@@ -178,7 +206,9 @@ def build_parser():
                     help="run with SimParams.telemetry on and attach the "
                          "merged telemetry block to every sweep row")
     ap.add_argument("--dp", type=int, default=0,
-                    help="not ported yet (the multi-GPU slice)")
+                    help="run the fleet configs dp-sharded over this many "
+                         "devices (parallel/sharded.py pipelined runtime; "
+                         "with --device cpu, that many shards on the CPU)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="torch device the fleets run on")
     ap.add_argument("--stream-out", default=None, metavar="PATH",
@@ -188,7 +218,10 @@ def build_parser():
                     help="run with SimParams.watchdog on so the streamed "
                          "digests carry live consensus-anomaly trip counts")
     ap.add_argument("--macro-k", type=int, default=0, metavar="K",
-                    help="not ported yet (the sharded-runtime slice)")
+                    help="arm the serial engine's K-event macro-steps "
+                         "(SimParams.macro_k) on the serial-engine "
+                         "configs: each dispatched step retires K events, "
+                         "bit-identically (lane configs are unaffected)")
     return ap
 
 

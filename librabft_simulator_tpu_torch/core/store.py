@@ -450,7 +450,7 @@ def insert_vote(p: SimParams, s: Store, weights, v: VoteMsg):
     new_weight = take(s.bal_weight, bvar, slot) + take(weights, author)
     do_ballot = ok & ongoing & has_slot
     mb = onehot(s.bal_used, (bvar, slot), when=do_ballot)
-    won = do_ballot & (new_weight >= config.quorum_threshold(weights))
+    won = do_ballot & (new_weight >= config.quorum_threshold(weights, config.mp_axis(p)))
     return s.replace(
         vt_valid=put(mv, s.vt_valid, True),
         vt_blk_var=put(mv, s.vt_blk_var, bvar),
@@ -493,7 +493,7 @@ def insert_qc(p: SimParams, s: Store, weights, q: QcMsg, tag_ok=None):
     state_match = exec_ok & (st_d == q.state_depth) & (st_t == q.state_tag)
     in_window = q.round > s.current_round - p.window
     vote_w, authors_known = mask_weight(p, weights, q.votes_lo, q.votes_hi)
-    quorum_ok = authors_known & (vote_w >= config.quorum_threshold(weights))
+    quorum_ok = authors_known & (vote_w >= config.quorum_threshold(weights, config.mp_axis(p)))
     if tag_ok is None:
         tag_ok = q.tag == qc_msg_tag(q)
     ok = (q.valid & (q.epoch == s.epoch_id) & ~is_dup & has_room & (bvar >= 0)
@@ -537,7 +537,7 @@ def insert_timeout(p: SimParams, s: Store, weights, t_epoch, t_round, t_hcbr,
     m = onehot(s.to_valid, author, when=ok)
     to_valid = put(m, s.to_valid, True)
     to_hcbr = put(m, s.to_hcbr, t_hcbr)
-    tc = ok & (new_weight >= config.quorum_threshold(weights))
+    tc = ok & (new_weight >= config.quorum_threshold(weights, config.mp_axis(p)))
     s2 = s.replace(
         to_valid=to_valid,
         to_hcbr=to_hcbr,

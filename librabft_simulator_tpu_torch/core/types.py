@@ -71,10 +71,11 @@ class SimParams:
 
     The lowering fields (``select_kernel``, ``unroll``, ``packed``,
     ``dense_writes``, ``gate_handlers``) pick between bit-identical forms in
-    the JAX package and have no effect in the port.  What later slices add
-    (``macro_k > 1``, ``mp_authors``, ``wrap="device"``) raises in the
-    engines until it lands; ``shuffle_receivers`` is a serial-engine
-    semantic that the lane engine refuses, as in the JAX package.
+    the JAX package and have no effect in the port.  ``macro_k`` (serial
+    engine), ``wrap`` / ``ring_k`` and ``mp_authors`` are the sharded
+    runtime's (parallel/sharded.py; resolved by ``utils/xops.py::
+    resolve_params``); ``shuffle_receivers`` and ``macro_k > 1`` are
+    serial-engine knobs that the lane engine refuses, as in the JAX package.
 
     ``scenario`` makes the delay table and the commit rule per-instance
     data (the ``sc_*`` leaves, read through :class:`TracedParams`);

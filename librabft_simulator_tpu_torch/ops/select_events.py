@@ -39,9 +39,11 @@ import ctypes
 import os
 import subprocess
 import threading
+import time
 
 import torch
 
+from ..telemetry import ledger as tledger
 from ..utils.xops import const
 
 NEVER = 2**31 - 1
@@ -94,13 +96,23 @@ def nvcc_path() -> str:
 
 def build(verbose: bool = False) -> str:
     """Compile the kernel library (if the build is older than the source)
-    and return its path."""
+    and return its path.  The runtime ledger (telemetry/ledger.py) gets one
+    compile entry: the nvcc seconds, and whether a current library was
+    found (``persistent-hit``) or built (``persistent-miss``)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    if (not os.path.exists(LIB_PATH)
-            or os.path.getmtime(LIB_PATH) < os.path.getmtime(SOURCE)):
+    key = tledger.params_key((os.path.basename(SOURCE), NVCC_FLAGS))
+    with tledger.get().compile_attribution(key, engine="select_events",
+                                           source=os.path.basename(SOURCE)) as entry:
+        if (os.path.exists(LIB_PATH)
+                and os.path.getmtime(LIB_PATH) >= os.path.getmtime(SOURCE)):
+            entry["cache_hits"] = 1
+            return LIB_PATH
+        entry["cache_misses"] = 1
         tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
         cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, SOURCE]
+        t0 = time.perf_counter()
         res = subprocess.run(cmd, capture_output=True, text=True)
+        entry["compile_s"] = time.perf_counter() - t0
         if res.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")

@@ -128,14 +128,17 @@ class SweepResult:
 
 
 def f_sweep(p: SimParams, n_instances: int, f_values=None, kind: str = "equivocate",
-            seed0: int = 0, device="cuda"):
-    """Sweep the number of faulty authors; per-f safety and liveness."""
+            seed0: int = 0, device="cuda", chunk: int = S.RUN_CHUNK):
+    """Sweep the number of faulty authors; per-f safety and liveness.
+    ``chunk``: steps between each run's halt reads (a smaller one stops a
+    run closer to its halt)."""
     if f_values is None:
         f_values = list(range(0, p.n_nodes // 3 + 2))
     out = []
     for f in f_values:
         seeds = np.arange(seed0, seed0 + n_instances, dtype=np.uint32)
-        st = S.run_to_completion(p, init_fault_batch(p, seeds, f, kind, device=device))
+        st = S.run_to_completion(p, init_fault_batch(p, seeds, f, kind, device=device),
+                                 chunk=chunk)
         honest = np.arange(p.n_nodes) >= f
         safe = check_safety(st, honest)
         cc = st.ctx.commit_count.cpu().numpy()[:, honest]

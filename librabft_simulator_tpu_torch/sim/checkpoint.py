@@ -1,4 +1,4 @@
-"""Checkpoint / resume on one device: the port of the ``.npz`` half of
+"""Checkpoint / resume: the port of the ``.npz`` half of
 ``librabft_simulator_tpu/sim/checkpoint.py``.
 
 The whole fleet (all instances, queues or inboxes, rng counters, planes) is
@@ -9,8 +9,9 @@ checkpoint written by either package loads into the other.  The port's
 states always carry the batch dim: a JAX checkpoint of one unbatched
 instance loads as a batch of one.
 
-Not ported: ``load_sharded`` (a mesh restore; it waits for the sharded
-runtime) and the orbax pair (no orbax on the card's machine).
+:func:`load_sharded` restores a fleet checkpoint onto a device mesh
+(parallel/mesh.py).  Not ported: the orbax pair (no orbax on the card's
+machine).
 """
 
 from __future__ import annotations
@@ -128,3 +129,25 @@ def _default(p, key, field, shape, dtype, resized=None):
     if resized is None:
         raise KeyError(f"checkpoint missing leaf {key}")
     raise ValueError(f"{key}: shape {resized} != {shape}")
+
+
+def load_sharded(path: str, p: SimParams, mesh, engine=None, like=None):
+    """Restore a batched checkpoint onto a device mesh; returns ``(state,
+    n_valid)``, a ``ShardedState`` and the checkpoint's batch.
+
+    The checkpoint is loaded on the host and, if the mesh does not divide
+    its batch, padded there with pre-halted instances
+    (``parallel/sharded.py::pad_to_multiple``); then each shard's rows go to
+    its own device, so no device ever holds a whole leaf.  ``engine`` makes
+    the padding (default: the engine of the checkpoint's state); ``like`` is
+    as in :func:`load`.  Drop the padding with ``sharded.unpad(state,
+    n_valid)``."""
+    from ..parallel import mesh as mesh_ops, sharded
+
+    if np.load(path)["clock"].ndim == 0:
+        raise ValueError(
+            "load_sharded needs a batched checkpoint (this one holds a "
+            "single instance); use load() for single-instance restores")
+    host = load(path, p, like=like, device="cpu")
+    host, n_valid = sharded.pad_to_multiple(p, host, mesh.size, engine=engine)
+    return mesh_ops.shard_batch(mesh, host), n_valid

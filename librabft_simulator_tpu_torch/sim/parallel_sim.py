@@ -189,7 +189,7 @@ def drain_of(p: SimParams) -> int:
 
 def check_slice(p: SimParams):
     """Raise for what the lane engine does not run: the serial engine's
-    knobs, and the planes of later slices of the port."""
+    knobs."""
     if (p.macro_k or 1) > 1:
         raise ValueError(
             f"SimParams.macro_k={p.macro_k} is a serial-engine knob; the lane "
@@ -200,7 +200,6 @@ def check_slice(p: SimParams):
             "SimParams.shuffle_receivers is a parity-trio semantic "
             "(serial/oracle/C++); the lane engine delivers in index order - "
             "use the serial engine for shuffle fuzzing")
-    S.check_slice(p)
 
 
 def inbox_buffer(shape, dtype, device, values=None) -> torch.Tensor:
@@ -741,6 +740,28 @@ def _window_planes(p: SimParams, st, m, flight, wd, live, t_ev, hz, qualify, A, 
     return out
 
 
+def make_scan_fn(p: SimParams, num_steps: int, st: PSimState, d_min: int | None = None):
+    """The chunk runner, ``st -> st``: ``num_steps`` windows per instance,
+    with the tables on the device of ``st`` and the Byzantine skip flags read
+    from ``st`` (``simulator.make_scan_fn``'s twin).  ``d_min`` overrides
+    the lookahead (1 <= d_min <= d_min_of(p)); absent inbox overflow the
+    trajectory does not depend on it, nor on ``active_lanes`` /
+    ``drain_k``."""
+    check_slice(p)
+    dmin = d_min_of(p) if d_min is None else int(d_min)
+    if not 1 <= dmin <= d_min_of(p):
+        raise ValueError(f"d_min={dmin} must lie in [1, {d_min_of(p)}]")
+    delay_table, dur_table = S.tables(p, st.clock.device)
+    flags = S.byz_flags(p, st)
+
+    def run(s):
+        for _ in range(num_steps):
+            s = step(p, delay_table, dur_table, dmin, s, *flags)
+        return s
+
+    return run
+
+
 @torch.no_grad()
 def run_to_completion(p: SimParams, st: PSimState, chunk: int = RUN_CHUNK,
                       max_chunks: int = RUN_MAX_CHUNKS, batched: bool = False,
@@ -749,34 +770,16 @@ def run_to_completion(p: SimParams, st: PSimState, chunk: int = RUN_CHUNK,
     windows between reads of ``halted``.  ``stream`` (a
     telemetry/stream.TimelineRecorder) switches the loop to the digest
     contract of ``simulator.stream_completion`` (its ``steps`` count
-    windows).  ``d_min`` overrides the lookahead (1 <= d_min <=
-    d_min_of(p)); absent inbox overflow the trajectory does not depend on
-    it, nor on ``active_lanes`` / ``drain_k``.  With the scenario plane on,
-    d_min_of(p) is 1 and each instance derives its own lookahead.  The
+    windows).  ``d_min``: see :func:`make_scan_fn`.  With the scenario plane
+    on, d_min_of(p) is 1 and each instance derives its own lookahead.  The
     number of windows taken is ``run_to_completion.last_steps``."""
     del batched
-    check_slice(p)
-    dmin = d_min_of(p) if d_min is None else int(d_min)
-    if not 1 <= dmin <= d_min_of(p):
-        raise ValueError(f"d_min={dmin} must lie in [1, {d_min_of(p)}]")
-    delay_table, dur_table = S.tables(p, st.clock.device)
-    any_eq, any_forge = S.byz_flags(p, st)
-
-    def run_chunk(st):
-        for _ in range(chunk):
-            st = step(p, delay_table, dur_table, dmin, st, any_eq, any_forge)
-        return st
-
+    run = make_scan_fn(p, chunk, st, d_min)
     if stream is not None:
-        st, windows = S.stream_completion(run_chunk, p, st, chunk, max_chunks, stream)
+        st, chunks = S.stream_completion(run, p, st, chunk, max_chunks, stream)
     else:
-        windows = 0
-        for _ in range(max_chunks):
-            st = run_chunk(st)
-            windows += chunk
-            if bool(st.halted.all()):
-                break
-    run_to_completion.last_steps = windows
+        st, chunks = S.halt_completion(run, st, chunk, max_chunks, "lane")
+    run_to_completion.last_steps = chunks * chunk
     return st
 
 

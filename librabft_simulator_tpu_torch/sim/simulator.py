@@ -2,10 +2,14 @@
 ``librabft_simulator_tpu/sim/simulator.py`` (the serial engine).
 
 ``step`` processes exactly one event of every instance of a ``[B]`` batch
-(JAX vmaps a per-instance step; here the batch dim is written out), and
+(JAX vmaps a per-instance step; here the batch dim is written out);
+``macro_step`` is ``SimParams.macro_k`` steps, the unit a chunk counts;
+``make_scan_fn`` is the chunk runner that ``run_to_completion``, its
+``stream=`` loop and the sharded runtime (parallel/sharded.py) share; and
 ``run_to_completion`` is a chunked host loop over it with one
 ``halted.all()`` read per chunk, or with ``stream=`` one fetch of the
-``[13]`` fleet digest per chunk (telemetry/stream.py).
+``[13]`` fleet digest per chunk (telemetry/stream.py).  Both loops record
+their dispatch and poll spans on the runtime ledger (telemetry/ledger.py).
 
 Event selection is the lexicographic argmin over (time asc, kind desc,
 stamp asc) of ``ops/select_events.py::select_queue_events``, which reads the
@@ -21,9 +25,9 @@ instance draws its delays from its own ``sc_delay`` table and commits by
 its own ``sc_commit`` rule) and the adversary plane
 (``SimParams.adversary``: windowed Byzantine behaviors OR-ed onto the
 static masks, per-link and windowed extra delays, partitions that heal;
-adversary/plane.py).  What later slices add raises
-``NotImplementedError`` here (see :func:`check_slice`); nothing is ignored
-silently.
+adversary/plane.py).  ``SimParams.mp_authors`` sums the quorum sites over
+the author group that the sharded runtime binds (core/config.py); outside
+it the step raises ``NameError``, as JAX's trace of an unbound axis does.
 """
 
 from __future__ import annotations
@@ -59,30 +63,19 @@ from ..core.types import (
     unpack_payload,
 )
 from ..ops.select_events import select_queue_events
-from ..telemetry import plane as tplane, stream as tstream
+from ..telemetry import ledger as tledger, plane as tplane, stream as tstream
 from ..utils import hashing as H
 from ..utils.quantile import TABLE_BITS
-from ..utils.xops import arange, const, needed, onehot, put, scatter_set, take, wset, zeros
+from ..utils.xops import (arange, const, needed, onehot, put, resolve_params, scatter_set,
+                          take, wset, zeros)
 
 I32 = torch.int32
 EQUIV_SALT = 1 << 20  # command-index offset of an equivocating second proposal
 
-# Default host-loop budget: events per chunk x chunk cap.
+# Default host-loop budget: macro-steps per chunk x chunk cap.  The sharded
+# sweep path (analysis/sweeps.py) runs under the same cap.
 RUN_CHUNK = 256
 RUN_MAX_CHUNKS = 400
-
-
-def check_slice(p: SimParams):
-    """Raise for the SimParams planes that later slices of the port add."""
-    later = [
-        ("macro_k > 1", (p.macro_k or 1) > 1, "the sharded-runtime slice"),
-        ("mp_authors", p.mp_authors, "the multi-GPU slice"),
-        ('wrap="device"', p.wrap == "device", "the sharded-runtime slice"),
-    ]
-    for name, on, where in later:
-        if on:
-            raise NotImplementedError(
-                f"SimParams {name} is not ported yet; it lands with {where}")
 
 
 def _u32_to_i32(values) -> np.ndarray:
@@ -102,7 +95,6 @@ def init_batch(p: SimParams, seeds, weights=None, byz_equivocate=None,
     """Simulator::new for a batch of instance seeds: per-node random startup
     times, initial timers at local time 0.  ``weights`` and the ``byz_*``
     masks are ``[N]`` (shared) or ``[B, N]`` (per instance)."""
-    check_slice(p)
     seeds = _u32_to_i32(np.asarray(seeds).reshape(-1))
     b, n = seeds.shape[0], p.n_nodes
     device = torch.device(device)
@@ -664,24 +656,83 @@ def tables(p: SimParams, device):
             torch.as_tensor(p.duration_table(), device=device))
 
 
-def stream_completion(run_chunk, p: SimParams, st, chunk: int, max_chunks: int, stream):
+def macro_k_of(p: SimParams) -> int:
+    """The macro-step width (``SimParams.macro_k``; 1 when unset)."""
+    return int(p.macro_k) if p.macro_k is not None else 1
+
+
+def macro_step(p: SimParams, delay_table, dur_table, st: SimState,
+               any_equivocate: bool = True, any_forge: bool = True) -> SimState:
+    """One dispatched unit of work: ``macro_k`` calls of :func:`step`.
+    Halted instances and drained queues make the extra calls exact no-ops
+    (every write of ``step`` is gated on ``live``), so a chunk of K-event
+    macro-steps equals K times as many single steps, leaf for leaf."""
+    for _ in range(macro_k_of(p)):
+        st = step(p, delay_table, dur_table, st, any_equivocate, any_forge)
+    return st
+
+
+def make_scan_fn(p: SimParams, num_steps: int, st: SimState):
+    """The chunk runner, ``st -> st``: ``num_steps`` macro-steps
+    (``num_steps * macro_k`` events) per instance, with the tables on the
+    device of ``st`` and the Byzantine skip flags read from ``st`` (one host
+    read, here; constant over a run).  ``run_to_completion``, its stream
+    loop and the sharded runtime all run chunks through it."""
+    p = resolve_params(p)
+    delay_table, dur_table = tables(p, st.clock.device)
+    flags = byz_flags(p, st)
+
+    def run(s):
+        for _ in range(num_steps):
+            s = macro_step(p, delay_table, dur_table, s, *flags)
+        return s
+
+    return run
+
+
+def stream_completion(run, p: SimParams, st, chunk: int, max_chunks: int, stream,
+                      events_per_step: int = 1):
     """The digest-poll host loop both engines' ``run_to_completion(stream=)``
-    share: ``run_chunk(st)`` runs ``chunk`` steps (windows); after each
-    chunk the ``[13]`` digest (telemetry/stream.py) is computed on the
-    device and fetched, once, and the halt check reads its slot 0, never
-    the ``[B]`` halted plane.  Every digest goes to ``stream``, whose
-    ``steps`` counts the steps (windows) run per instance, as in the JAX
-    package (one event per serial step: ``macro_k`` is not ported).  The
-    runtime ledger's spans are not ported.  Returns (state, steps run)."""
+    share: ``run`` is a chunk runner (``make_scan_fn``); after each chunk the
+    ``[13]`` digest (telemetry/stream.py) is computed on the device and
+    fetched, once, and the halt check reads its slot 0, never the ``[B]``
+    halted plane.  Every digest goes to ``stream``, whose ``steps`` are the
+    event steps (windows) run per instance: ``(i + 1) * chunk *
+    events_per_step``, where ``events_per_step`` is the serial engine's
+    ``macro_k``.  Returns (state, chunks run)."""
     b_total = st.clock.shape[0]
-    steps = 0
-    for _ in range(max_chunks):
-        st = run_chunk(st)
-        steps += chunk
-        d = stream.record(tstream.compute_digest(p, st).cpu().numpy(), steps=steps)
+    lg = tledger.get()
+    rid = lg.new_run("stream_completion", chunk_steps=chunk)
+    chunks = 0
+    for i in range(max_chunks):
+        with lg.span(tledger.DISPATCH, run=rid, chunk=i):
+            st = run(st)
+            dg = tstream.compute_digest(p, st)
+        with lg.span(tledger.POLL, run=rid, chunk=i):
+            fetched = dg.cpu().numpy()
+        chunks += 1
+        d = stream.record(fetched, steps=(i + 1) * chunk * events_per_step)
         if d["halted"] >= b_total:
             break
-    return st, steps
+    return st, chunks
+
+
+def halt_completion(run, st, chunk: int, max_chunks: int, engine: str):
+    """The plain host loop both engines' ``run_to_completion`` share: one
+    read of ``halted.all()`` after each chunk of ``run``.  Returns (state,
+    chunks run)."""
+    lg = tledger.get()
+    rid = lg.new_run("run_to_completion", engine=engine, chunk_steps=chunk)
+    chunks = 0
+    for i in range(max_chunks):
+        with lg.span(tledger.DISPATCH, run=rid, chunk=i):
+            st = run(st)
+        with lg.span(tledger.POLL, run=rid, chunk=i):
+            halted = bool(st.halted.all())
+        chunks += 1
+        if halted:
+            break
+    return st, chunks
 
 
 @torch.inference_mode()
@@ -689,33 +740,22 @@ def run_to_completion(p: SimParams, st: SimState, chunk: int = RUN_CHUNK,
                       max_chunks: int = RUN_MAX_CHUNKS, batched: bool = False,
                       stream=None):
     """Host loop: run until every instance passes max_clock, ``chunk``
-    events per instance between reads of ``halted`` (one host sync per
-    chunk).  ``stream`` (a telemetry/stream.TimelineRecorder) switches the
-    loop to the digest contract of :func:`stream_completion`.  ``batched``
-    is accepted for the JAX signature; the port's state always carries the
-    batch dim.  Returns the final state; the number of batch steps taken
-    is ``run_to_completion.last_steps``."""
+    macro-steps (``chunk * macro_k`` events) per instance between reads of
+    ``halted`` (one host sync per chunk).  ``stream`` (a
+    telemetry/stream.TimelineRecorder) switches the loop to the digest
+    contract of :func:`stream_completion`.  ``batched`` is accepted for the
+    JAX signature; the port's state always carries the batch dim.  Returns
+    the final state; the number of event steps taken is
+    ``run_to_completion.last_steps``."""
     del batched
-    check_slice(p)
-    dev = st.clock.device
-    delay_table, dur_table = tables(p, dev)
-    any_eq, any_forge = byz_flags(p, st)
-
-    def run_chunk(st):
-        for _ in range(chunk):
-            st = step(p, delay_table, dur_table, st, any_eq, any_forge)
-        return st
-
+    p = resolve_params(p)
+    run = make_scan_fn(p, chunk, st)
+    k = macro_k_of(p)
     if stream is not None:
-        st, steps = stream_completion(run_chunk, p, st, chunk, max_chunks, stream)
+        st, chunks = stream_completion(run, p, st, chunk, max_chunks, stream, k)
     else:
-        steps = 0
-        for _ in range(max_chunks):
-            st = run_chunk(st)
-            steps += chunk
-            if bool(st.halted.all()):
-                break
-    run_to_completion.last_steps = steps
+        st, chunks = halt_completion(run, st, chunk, max_chunks, "serial")
+    run_to_completion.last_steps = chunks * chunk * k
     return st
 
 

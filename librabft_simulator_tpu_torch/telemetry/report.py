@@ -14,8 +14,10 @@ after it:
 
 The port's states always carry the batch dim.  ``instance`` picks one
 instance; ``instance=None`` on a batch of one reports that instance, as
-the JAX package reports its unbatched state.  Histogram quantiles are
-``(lo, hi)`` bucket bounds (utils/quantile.py).
+the JAX package reports its unbatched state.  The fleet functions also take
+a sharded fleet (parallel/mesh.py ``ShardedState``): its shards' rows in
+instance order.  Histogram quantiles are ``(lo, hi)`` bucket bounds
+(utils/quantile.py).
 """
 
 from __future__ import annotations
@@ -59,10 +61,25 @@ def metrics_dict(p, st, instance: Optional[int] = None) -> dict:
     return plane.decode(p, _np(st.metrics[i]))
 
 
+def _rows(st, name: str, stop: Optional[int] = None) -> np.ndarray:
+    """Leaf ``name`` of a state or a sharded fleet on the host, its first
+    ``stop`` instances (all by default), in instance order."""
+    shards = getattr(st, "shards", None) or [st]
+    out, n = [], 0
+    for s in shards:
+        if stop is not None and n >= stop:
+            break
+        x = getattr(s, name)
+        k = x.shape[0] if stop is None else min(x.shape[0], stop - n)
+        out.append(_np(x[:k]))
+        n += k
+    return np.concatenate(out, axis=0)
+
+
 def merged_metrics(p, st) -> dict:
     """The batch's planes folded across instances: counters and histogram
     buckets sum, high-water marks max."""
-    vec = plane.fold_planes(p, _np(st.metrics))
+    vec = plane.fold_planes(p, _rows(st, "metrics"))
     return plane.decode(p, vec)
 
 
@@ -87,9 +104,9 @@ def fleet_flight(p, st, max_instances: Optional[int] = None) -> list[dict]:
     its ``instance``; ``max_instances`` stops at the first k instances."""
     if not p.telemetry:
         return []
-    b = st.clock.shape[0] if max_instances is None else min(max_instances, st.clock.shape[0])
-    fl, met = _np(st.flight[:b]), _np(st.metrics[:b])
-    return [dict(r, instance=i) for i in range(b) for r in _flight_rows(p, fl[i], met[i], i)]
+    fl, met = _rows(st, "flight", max_instances), _rows(st, "metrics", max_instances)
+    return [dict(r, instance=i) for i in range(fl.shape[0])
+            for r in _flight_rows(p, fl[i], met[i], i)]
 
 
 def _quantile_block(counts) -> dict:

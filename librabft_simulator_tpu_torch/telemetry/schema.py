@@ -44,6 +44,12 @@ DIGEST_SLOTS = (
 )
 DIGEST_WIDTH = len(DIGEST_SLOTS)
 
+#: Ring-batch annotations on ``kind="row"`` lines (the ``wrap="device"``
+#: dispatch, ``TimelineRecorder.record_ring``): ``ring_i`` is the row's place
+#: in one outer call's retired batch, ``ring_n`` the batch size.  Absent on
+#: rows polled one chunk at a time; additive, so no version bump.
+RING_ROW_FIELDS = ("ring_i", "ring_n")
+
 #: Watchdog detectors surfaced in the digest, in wd-plane counter order.
 WD_DETECTORS = ("stall", "queue_sat", "sync_jump", "safety_conflict",
                 "round_regress")

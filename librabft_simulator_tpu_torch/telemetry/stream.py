@@ -15,16 +15,21 @@ and the host-side timeline.  The port of
   zero-width and the step skips it.
 * **Timeline**: :class:`TimelineRecorder` collects the digests into a host
   time series and streams NDJSON that :func:`load_ndjson` (and the JAX
-  package's readers) read back.
+  package's readers) read back; :meth:`TimelineRecorder.record_ring` takes
+  a device-wrap ring of digests fetched at once.
 
 The slot maps are frozen behind :data:`REGISTRY_VERSION`; readers refuse a
-stream of another version.  The mesh-wide reduction of the digest across
-devices is not ported (one device).
+stream of another version.  The digest of a sharded fleet
+(parallel/sharded.py) reduces its shards' digests slot by slot on the
+device of the first shard (:func:`merge_digests`), the JAX package's mesh
+reduction.
 """
 
 from __future__ import annotations
 
+import functools
 import json
+import threading
 import time
 
 import numpy as np
@@ -60,11 +65,16 @@ def init_wd(p, shape=(), device="cuda"):
 
 def compute_digest(p, st) -> torch.Tensor:
     """The fleet-health digest of a batched engine state (serial
-    ``SimState`` or lane ``PSimState``): one ``[D]`` int32 tensor on the
-    state's device, slots as :data:`DIGEST_SLOTS`.  ``queue_depth_max`` is
-    the current occupancy, not the high-water mark.  int32 throughout, as
-    in the JAX package: the sums are taken wide and cast back, so a fleet
-    summing past 2**31 wraps the same way."""
+    ``SimState`` or lane ``PSimState``, or a sharded fleet of either): one
+    ``[D]`` int32 tensor on the state's device (a sharded fleet's first
+    shard's), slots as :data:`DIGEST_SLOTS`.  ``queue_depth_max`` is the
+    current occupancy, not the high-water mark.  int32 throughout, as in the
+    JAX package: the sums are taken wide and cast back, so a fleet summing
+    past 2**31 wraps the same way."""
+    shards = getattr(st, "shards", None)
+    if shards is not None:
+        return merge_digests([compute_digest(p, s) for s in shards])
+
     def s32(x):
         return x.sum(dtype=torch.int64).to(I32)
 
@@ -83,6 +93,31 @@ def compute_digest(p, st) -> torch.Tensor:
     else:
         parts += [torch.zeros((), dtype=I32, device=hcr.device)] * len(WD_DETECTORS)
     return torch.stack([x.to(I32) for x in parts])
+
+
+@functools.lru_cache(maxsize=None)
+def _agg_masks(device):
+    """Which digest slots sum and which take the max, as bool tensors on
+    ``device`` (made once: a host list sent per call would wait for the
+    card's queue)."""
+    aggs = [agg for _, agg in DIGEST_SLOTS]
+    return (torch.tensor([a == SUM for a in aggs], device=device),
+            torch.tensor([a == MAX for a in aggs], device=device))
+
+
+def merge_digests(vecs) -> torch.Tensor:
+    """Per-shard ``[D]`` digests folded into the fleet's, slot by slot as
+    :data:`DIGEST_SLOTS` says (sum, max or min), on the device of the first:
+    the JAX package's ``compute_digest(axis_names=)`` psum / pmax / pmin.
+    The vectors cross devices without a host fetch."""
+    dev = vecs[0].device
+    if len(vecs) == 1:
+        return vecs[0]
+    m = torch.stack([v.to(dev, non_blocking=True) for v in vecs]).to(torch.int64)
+    is_sum, is_max = _agg_masks(dev)
+    out = torch.where(is_sum, m.sum(dim=0),
+                      torch.where(is_max, m.max(dim=0).values, m.min(dim=0).values))
+    return out.to(I32)
 
 
 # ---------------------------------------------------------------------------
@@ -151,6 +186,9 @@ class TimelineRecorder:
         self.rows = []
         self._owns_out = isinstance(out, str)
         self._out = open(out, "w") if self._owns_out else out
+        # Lines are written under this lock, so a row that another thread
+        # emits never interleaves with a digest row.
+        self._wlock = threading.Lock()
         self._t0 = self._last_t = time.perf_counter()
         self._last_events = 0
         header = {
@@ -167,29 +205,67 @@ class TimelineRecorder:
 
     def _emit(self, obj) -> None:
         if self._out is not None:
-            self._out.write(json.dumps(obj) + "\n")
-            self._out.flush()
+            with self._wlock:
+                self._out.write(json.dumps(obj) + "\n")
+                self._out.flush()
 
-    def record(self, digest, steps=None) -> dict:
-        """Append one chunk's digest (an already-fetched ``[D]`` vector);
-        returns the derived row."""
-        t = time.perf_counter()
-        d = decode_digest(digest)
-        dt = max(t - self._last_t, 1e-9)
+    def emit(self, obj: dict) -> None:
+        """Append one extra NDJSON line (no-op without ``out``).  Its
+        ``kind`` must not be meta, fleet or row: readers dispatch on it."""
+        self._emit(obj)
+
+    def set_fleet(self, total: int, n_valid: int) -> None:
+        """Fleet geometry from the sharded runtime: ``total`` is the padded
+        instance count, which the digest's ``halted`` slot counts (the
+        pre-halted padding included), ``n_valid`` the real instances.  Rows
+        stay as the device computed them.  Sets ``total_instances`` only
+        when the constructor was given none."""
+        if self.total_instances is None:
+            self.total_instances = total
+        self._emit({"kind": "fleet", "total_instances": total,
+                    "n_valid": n_valid, "padding": total - n_valid})
+
+    def _row(self, d, t, steps, per_s, **extra) -> dict:
         elapsed = t - self._t0
         row = {"kind": "row", "chunk": len(self.rows), "t_s": round(elapsed, 6),
-               "steps": steps, **d,
-               "ev_per_s": round((d["events"] - self._last_events) / dt, 1)}
+               "steps": steps, **extra, **d,
+               "ev_per_s": round((d["events"] - self._last_events) / per_s, 1)}
         if self.total_instances:
             row["halt_frac"] = round(d["halted"] / self.total_instances, 6)
             # Crude ETA from the mean halting rate so far.
             row["eta_s"] = (
                 round(elapsed * (self.total_instances - d["halted"]) / d["halted"], 3)
                 if d["halted"] > 0 and elapsed > 0 else None)
-        self._last_t = t
         self._last_events = d["events"]
         self.rows.append(row)
         self._emit(row)
+        return row
+
+    def record_ring(self, ring, retired, steps=None) -> list[dict]:
+        """Append one outer call's retired ring rows (``wrap="device"``): the
+        first ``retired`` rows of a fetched ``[ring_k, D]`` ring, oldest
+        first.  They were fetched at once, so they share one timestamp and
+        carry ``ring_i`` / ``ring_n`` (schema.RING_ROW_FIELDS); each keeps
+        its own chunk's cumulative counters, and ``ev_per_s`` spreads the
+        poll interval evenly over them.  ``steps``: one step count per row
+        (at least ``retired``)."""
+        ring = np.asarray(ring)
+        n = int(retired)
+        if not 1 <= n <= ring.shape[0]:
+            raise ValueError(f"retired={n} outside the ring's [1, {ring.shape[0]}] rows")
+        t = time.perf_counter()
+        per = max(t - self._last_t, 1e-9) / n
+        out = [self._row(decode_digest(ring[i]), t, None if steps is None else steps[i],
+                         per, ring_i=i, ring_n=n) for i in range(n)]
+        self._last_t = t
+        return out
+
+    def record(self, digest, steps=None) -> dict:
+        """Append one chunk's digest (an already-fetched ``[D]`` vector);
+        returns the derived row."""
+        t = time.perf_counter()
+        row = self._row(decode_digest(digest), t, steps, max(t - self._last_t, 1e-9))
+        self._last_t = t
         return row
 
     def summary(self, tail: int = 8) -> dict:

@@ -10,7 +10,8 @@ where JAX's ``mode="drop"`` discards).
 
 The JAX package's lowering choices (``SimParams.dense_writes``, ``packed``,
 ``gate_handlers``, ``unroll``) pick between bit-identical forms there; the
-port accepts the fields and they have no effect on it.
+port accepts the fields and they have no effect on it.  :func:`resolve_params`
+makes the dispatch fields (``macro_k``, ``wrap``, ``ring_k``) explicit.
 
 Nothing here mutates its inputs: state tensors are never written in place,
 which is what lets ``zeros`` hand one cached tensor to many leaves.
@@ -18,11 +19,31 @@ which is what lets ``zeros`` hand one cached tensor to many leaves.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
 
 I32 = torch.int32
+
+#: Digest-ring depth of ``wrap="device"`` when ``SimParams.ring_k`` is unset.
+DEFAULT_RING_K = 16
+
+
+def resolve_params(p):
+    """The dispatch fields of a SimParams made explicit, as the JAX
+    package's ``resolve_params`` makes them, but from the params' own
+    values only (the port reads no environment variable): ``macro_k`` None
+    becomes 1, ``wrap`` None becomes ``"host"``, and ``ring_k`` becomes
+    :data:`DEFAULT_RING_K` (if unset) under ``wrap="device"`` and None
+    under ``wrap="host"``.  The lowering fields have no effect on the port
+    and stay as they are."""
+    macro = p.macro_k if p.macro_k is not None else 1
+    wrap = p.wrap if p.wrap is not None else "host"
+    ring = None if wrap == "host" else (p.ring_k if p.ring_k is not None else DEFAULT_RING_K)
+    if (macro, wrap, ring) == (p.macro_k, p.wrap, p.ring_k):
+        return p
+    return dataclasses.replace(p, macro_k=macro, wrap=wrap, ring_k=ring)
 
 
 @functools.lru_cache(maxsize=None)

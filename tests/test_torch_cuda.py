@@ -209,3 +209,45 @@ def test_cuda_lane_step_matches_cpu(cuda_device):
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     assert int(want["n_events"].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [False, True])
+def test_cuda_sharded_ring_matches_cpu(cuda_device, lanes):
+    """The sharded runtime on the card: a 3-shard mesh on one card (B=5
+    padded to 6), the device wrap (ring_k 4) and the pipelined host wrap,
+    equal the CPU's run_to_completion in every leaf; the select launches are
+    the event steps (windows x drain) of every shard; the ring fetches its
+    digests, and waits on the card, fewer times than it retires chunks."""
+    import dataclasses
+
+    from fleet_shapes import FLEET_B, FLEET_LANE_KW, FLEET_SER_KW
+    from librabft_simulator_tpu_torch import convert
+    from librabft_simulator_tpu_torch.core.types import SimParams
+    from librabft_simulator_tpu_torch.parallel import mesh as M, sharded as SH
+    from librabft_simulator_tpu_torch.sim import parallel_sim as P
+    from librabft_simulator_tpu_torch.sim import simulator as S
+    from librabft_simulator_tpu_torch.telemetry import ledger
+
+    eng, kw, clock = (P, FLEET_LANE_KW, 150) if lanes else (S, FLEET_SER_KW, 120)
+    p = SimParams(max_clock=clock, **kw)
+    seeds = SH.fleet_seeds(0, FLEET_B)
+    want = convert.to_reference(eng.run_to_completion(p, eng.init_batch(p, seeds, device="cpu"),
+                                                      chunk=8))
+    mesh = M.make_mesh(3, 1, devices=[cuda_device] * 3)
+    per_step = P.drain_of(p) if lanes else 1
+    for pw in (dataclasses.replace(p, wrap="device", ring_k=4), p):
+        before = sel.select_queue_events.launches
+        st = SH.run_sharded(pw, mesh, eng.init_batch(pw, seeds, device=cuda_device),
+                            num_steps=8 * 100, chunk=8, engine=eng)
+        torch.cuda.synchronize()
+        assert (sel.select_queue_events.launches - before
+                == SH.run_sharded.last_steps * per_step * 3)
+        got = convert.to_reference(st)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        if pw.wrap == "device":
+            ring = ledger.get().ring_stats()
+            assert ring["polls_per_retired_chunk"] < 1
+            assert ring["waits_per_retired_chunk"] < 1
+    assert int(want["n_events"].sum()) > 0

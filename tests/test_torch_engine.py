@@ -126,9 +126,20 @@ def test_against_oracle_edge_shapes(case):
 
 
 def test_later_slices_raise():
-    for kw in (dict(macro_k=4), dict(wrap="device"), dict(mp_authors=True)):
-        with pytest.raises(NotImplementedError):
-            S.init_batch(SimParams(**kw), [0], device="cpu")
+    # The sharded-runtime knobs are ported (tests/test_torch_sharded.py):
+    # the state is the same, and the serial engine runs macro-steps...
+    base = S.init_batch(SimParams(), [0], device="cpu")
+    for kw in (dict(macro_k=4), dict(wrap="device", ring_k=2), dict(mp_authors=True)):
+        st = S.init_batch(SimParams(**kw), [0], device="cpu")
+        assert convert.to_reference(st).keys() == convert.to_reference(base).keys()
+    p = SimParams(macro_k=4, max_clock=40)
+    S.run_to_completion(p, S.init_batch(p, [0], device="cpu"), chunk=2, max_chunks=1)
+    assert S.run_to_completion.last_steps == 8
+    # ... but mp_authors sums over an author group only a mesh binds: outside
+    # the sharded runtime it raises, as JAX's unbound axis does.
+    p = SimParams(mp_authors=True, max_clock=200)
+    with pytest.raises(NameError, match="unbound axis name"):
+        S.run_to_completion(p, S.init_batch(p, [0], device="cpu"), chunk=64)
     # The telemetry and watchdog planes are ported: they allocate their leaves.
     st = S.init_batch(SimParams(telemetry=True, watchdog=True), [0], device="cpu")
     assert st.metrics.shape[1] > 0 and st.wd.shape == (1, 6)

@@ -194,9 +194,11 @@ def test_lane_state_round_trip():
 
 
 def test_lane_rejects_what_it_does_not_run():
-    for kw in (dict(shuffle_receivers=True), dict(wrap="device"), dict(mp_authors=True)):
-        with pytest.raises(NotImplementedError):
-            P.init_batch(SimParams(**kw), [0], device="cpu")
+    with pytest.raises(NotImplementedError):
+        P.init_batch(SimParams(shuffle_receivers=True), [0], device="cpu")
+    # The device wrap and mp_authors are ported (tests/test_torch_sharded.py).
+    for kw in (dict(wrap="device"), dict(mp_authors=True)):
+        assert P.init_batch(SimParams(**kw), [0], device="cpu").in_valid.shape == (1, 3, 16)
     with pytest.raises(ValueError, match="serial-engine knob"):
         P.init_batch(SimParams(macro_k=4), [0], device="cpu")
     st = P.init_batch(SimParams(), [0], device="cpu")
@@ -247,9 +249,30 @@ def test_sweep_configs_and_flags_match_jax():
     assert flags(sweeps.build_parser(), {"help", "device"}) == flags(
         _jax_sweep_parser(), {"help", "platform"})
     assert sweeps.build_parser().parse_args([]).device == "cuda"
-    for argv in (["--dp", "2"], ["--macro-k", "4"]):
-        with pytest.raises(NotImplementedError):
-            sweeps.main(argv + ["--device", "cpu"])
+    # --dp and --macro-k are ported (tests/test_torch_sharded.py runs the dp
+    # path): run_all hands dp to the fleet configs and macro_k to the serial
+    # ones, as JAX's does.
+    args = sweeps.build_parser().parse_args(["--dp", "2", "--macro-k", "4"])
+    assert (args.dp, args.macro_k) == (2, 4)
+    seen = []
+
+    def fake_run_config(p, n, engine=None, dp=0, stream=None, device="cuda"):
+        seen.append((p.n_nodes, p.macro_k, engine is P, dp))
+        return {}
+
+    def fake_f_sweep(p, n, f_values, device="cuda"):
+        seen.append((p.n_nodes, p.macro_k, "sweep", 0))
+        return []
+
+    from librabft_simulator_tpu_torch.sim import byzantine
+    orig = sweeps.run_config, byzantine.f_sweep
+    sweeps.run_config, byzantine.f_sweep = fake_run_config, fake_f_sweep
+    try:
+        sweeps.run_all(0.001, dp=2, macro_k=4, device="cpu")
+    finally:
+        sweeps.run_config, byzantine.f_sweep = orig
+    assert seen == [(3, 4, False, 2), (4, 4, False, 2), (64, None, True, 2),
+                    (4, 4, "sweep", 0), (16, None, True, 2)]
     # The plane and stream flags are ported (tests/test_torch_telemetry.py).
     args = sweeps.build_parser().parse_args(
         ["--telemetry", "--watchdog", "--stream-out", "x.ndjson"])
