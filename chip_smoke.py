@@ -1,8 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py [--max_clock 300] [--byz_clock 150] [--c3_clock 30] [--c5_clock 65]
-                          [--sc_clock 100 180] [--sc5_clock 60 70] [--sc5_clock3 85 95]
-                          [--ring5_clock 40]
+    python3 chip_smoke.py [--max_clock 250] [--byz_clock 100] [--c3_clock 30] [--c5_clock 65]
+                          [--sc_clock 60 100] [--sc5_clock 60 70] [--sc5_clock3 85 95]
+                          [--ring5_clock 40] [--serve_clock 40 80] [--serve_clock3 80 100]
 
 Phases, each printed with its seconds:
   1. card: nvidia-smi name and power limit, torch's device name;
@@ -46,7 +46,8 @@ Phases, each printed with its seconds:
   8. config #3 on the lane engine at full width (64 nodes, Pareto delay, 5%
      drop, 1,000 instances, 256-slot inboxes, 16 lanes, drain 8):
      select_queue_events launches = drain x windows; windows, ms per
-     window, events/s, rounds/s, drops, inbox-full, peak memory; then 3
+     window, events/s, rounds/s, drops, inbox-full, peak memory; fails
+     unless some instance formed a round past the first; then 3
      instances re-run on the CPU, every leaf equal; then one window of a
      fresh fleet, after one, under torch.profiler;
   9. config #5 on the lane engine at full width (16 nodes, 2-chain, uniform
@@ -73,7 +74,7 @@ Phases, each printed with its seconds:
      trip: a horizon too short for these paths fails, it does not pass
      quietly;
  12. a checkpoint round trip on the card: phase 10's fleet, saved
-     (sim/checkpoint.py) after its sixth chunk (step 384), loaded on the
+     (sim/checkpoint.py) after its fifth chunk (step 320), loaded on the
      card and on the CPU, equals the card's state it was saved from in every
      leaf; phase 15 resumes it and holds the result to phase 10's run, which
      went on in memory;
@@ -111,7 +112,7 @@ Phases, each printed with its seconds:
      with the planes off is not profiled);
  15. the sharded runtime (parallel/sharded.py) and the runtime ledger
      (telemetry/ledger.py), with the CPU workers stopped during both runs.
-     Serial: phase 12's checkpoint (phase 10's fleet at step 384) loaded by
+     Serial: phase 12's checkpoint (phase 10's fleet at step 320) loaded by
      checkpoint.load_sharded onto a 3-shard mesh on the one card (10,000
      instances padded to 10,002 with pre-halted ones), run by run_sharded
      with wrap="device", ring_k 4, macro_k 4 and chunks of 4 macro-steps (16
@@ -131,11 +132,35 @@ Phases, each printed with its seconds:
      ring row equals compute_digest of the final state, peak memory at most
      phase 9's + 1 GB, the same ring_stats checks.  Prints ms per event step
      and per window beside phases 10 and 9 and the ledger's pipeline stats.
+ 16. the resident fleet service (serve/service.py, serve/api.py) at config
+     #2's width: FleetService on one shard of 10,000 slots (n=4, uniform,
+     queue_cap 64, the scenario and adversary planes, adv_windows 4, the
+     watchdog; telemetry off), 32-event chunks.  12,500 requests from phase
+     13's generator (per-request max_clock from --serve_clock on the 2-chain
+     requests and --serve_clock3 on the 3-chain ones, where that rule first
+     commits) are written as NDJSON and read by FleetService.submit_file;
+     the double-buffered digest pump serves until an admission wave has
+     landed in slots that egress freed and every admitted request has run a
+     polled chunk, the service is preempted to a checkpoint, resumed under
+     the device-wrap ring (ring_k 4) and drained.  Checks: every id
+     egressed once; each result's events, clock, commits, committed round,
+     messages sent and dropped, safety and watchdog trips equal its row of
+     one static fleet run of all 12,500 specs on the card (init_specs +
+     run_to_completion); picked requests (a committed request of each
+     chain, an attacked one, one of the second wave, one active at the
+     preemption) equal a CPU run; both chains commit; the stream holds
+     submitted, admitted, first_chunk and egressed for every id; the host
+     wrap reads one digest per polled chunk and the halted plane only at
+     egress boundaries, the ring waits less than once per retired chunk;
+     select launches on the serve path = event steps x shards.  Prints ms
+     per event step beside phase 13's, seconds per admission wave and per
+     egress, requests per second, ttfc p50/p99 and peak memory; the CPU
+     workers are stopped while the service runs.
 
-The card-vs-CPU re-runs of phases 5-15 go to two worker processes
+The card-vs-CPU re-runs of phases 5-16 go to two worker processes
 (``CpuChecks``) while the card runs the later phases; their comparisons are
-printed, and fail the script, after phase 15.  The workers are stopped
-(SIGSTOP) during the timed runs of phases 9, 10 and 15, whose figures are
+printed, and fail the script, after phase 16.  The workers are stopped
+(SIGSTOP) during the timed runs of phases 9, 10, 15 and 16, whose figures are
 set side by side; every other timed run prints how many reference runs were
 pending at its start and end, the load it shared the host with.  Only the
 horizon (max_clock) of a main path is cut, to fit the time limit; each cut
@@ -183,14 +208,20 @@ FULL_CLOCK = 1000              # the BASELINE configs' horizon
 LANE_PICKS = 3                 # lane instances re-run on the CPU
 DOCTOR_I = 3                   # phase 10's instance with a planted conflicting commit
 FAMILIES = ("uniform", "lognormal", "pareto")
-SERIAL_CHUNK = 64              # config #2's halt reads (phases 4, 10): it halts at step 448
-CKPT_CHUNKS = 6                # phase 10 saves its fleet after this many chunks (step 384)
+SERIAL_CHUNK = 64              # config #2's halt reads (phases 4, 10): at max_clock 250 its
+                               # busiest instance runs 375 events (a CPU run of the fleet)
+CKPT_CHUNKS = 5                # phase 10 saves its fleet after this many chunks (step 320)
 SWEEP_CHUNK = 32               # config #4's halt reads (phase 7)
 SHARDS = 3                     # phase 15's serial mesh: 10,000 pads to 10,002
 RING_K = 4                     # phase 15's ring depth, both engines
 MACRO_K = 4                    # phase 15's serial macro-step width
 RING_CHUNK = SERIAL_CHUNK // (RING_K * MACRO_K)  # its chunk in macro-steps: a ring call
                                                  # retires one of phase 10's chunks
+SERVE_SLOTS = 10000            # phase 16's resident fleet: config #2's width
+SERVE_REQUESTS = 12500         # 1.25 x the slots: 2,500 go into slots that egress freed
+SERVE_CHUNK = 32               # phase 16's chunk (event steps)
+SERVE_RING_K = 4               # the ring depth of its resumed leg
+SERVE_MAX_CHUNKS = 64          # the chunks its first leg may take to land an admission wave
 CPU_WORKERS = 2                # processes that run the CPU reference runs meanwhile
 CPU_THREADS = 1                # torch threads in each (the card's host is shared)
 CHECKS = None                  # the CpuChecks of this run (main)
@@ -615,14 +646,16 @@ def leaves_equal(ref: dict, got: dict, label):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--max_clock", type=int, default=300,
+    ap.add_argument("--max_clock", type=int, default=250,
                     help="horizon of config #2 (the BASELINE 1000, cut to fit the time limit)")
-    ap.add_argument("--byz_clock", type=int, default=150, help="horizon of config #4")
-    ap.add_argument("--c3_clock", type=int, default=30, help="horizon of config #3")
+    ap.add_argument("--byz_clock", type=int, default=100, help="horizon of config #4")
+    ap.add_argument("--c3_clock", type=int, default=30,
+                    help="horizon of config #3 (at 28 or less no instance of a CPU sample "
+                    "formed a round)")
     ap.add_argument("--c5_clock", type=int, default=65,
                     help="horizon of config #5 (phases 9 and 11 fail below its first "
                          "commits and overflow)")
-    ap.add_argument("--sc_clock", type=int, nargs=2, default=(100, 180),
+    ap.add_argument("--sc_clock", type=int, nargs=2, default=(60, 100),
                     help="range of the per-slot horizons of phase 13's fleet")
     ap.add_argument("--sc5_clock", type=int, nargs=2, default=(60, 70),
                     help="range of the per-slot horizons of phase 14's 2-chain slots")
@@ -631,6 +664,11 @@ def main(argv=None):
                          "(the 3-chain rule commits a round later)")
     ap.add_argument("--ring5_clock", type=int, default=40,
                     help="horizon of phase 15's config #5 fleet under the device wrap")
+    ap.add_argument("--serve_clock", type=int, nargs=2, default=(40, 80),
+                    help="range of the per-request horizons of phase 16's 2-chain requests")
+    ap.add_argument("--serve_clock3", type=int, nargs=2, default=(80, 100),
+                    help="range of the per-request horizons of phase 16's 3-chain requests "
+                         "(the 3-chain rule commits later)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -644,7 +682,7 @@ def main(argv=None):
 
 
 def run_phases(args, checks):
-    """Phases 1-15 (the module docstring), then the card-vs-CPU
+    """Phases 1-16 (the module docstring), then the card-vs-CPU
     comparisons that ``checks`` ran meanwhile, the kernel line, the card and
     the result line."""
     from librabft_simulator_tpu_torch.convert import to_reference
@@ -874,7 +912,7 @@ def run_phases(args, checks):
 
         t = phase("13. scenario and adversary planes, serial (config #2's width)")
         p13 = dataclasses.replace(p, scenario=True, adversary=True, adv_windows=4)
-        by_path["config #2 serial, scenario and adversary"] = serial_scenario_phase(
+        by_path["config #2 serial, scenario and adversary"], ms13 = serial_scenario_phase(
             p13, b, {3: args.sc_clock, 2: args.sc_clock}, sel, to_reference, serial_ms, checks)
         done("scenario and adversary planes, serial (config #2's width)", t)
 
@@ -891,10 +929,16 @@ def run_phases(args, checks):
                                      mid_steps, planes_ms, window_ms["config #5"], peak9, tmp,
                                      checks))
         done("sharded runtime and runtime ledger (configs #2 and #5)", t)
+
+        t = phase("16. resident fleet service (config #2's width)")
+        p16 = dataclasses.replace(p, scenario=True, adversary=True, adv_windows=4,
+                                  watchdog=True)
+        by_path.update(serve_phase(args, p16, sel, serial_ms, ms13, checks, tmp))
+        done("resident fleet service (config #2's width)", t)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    t = phase("card vs CPU: the reference runs of phases 5-15 on the CPU worker")
+    t = phase("card vs CPU: the reference runs of phases 5-16 on the CPU worker")
     checks.finish()
     done("card vs CPU", t)
 
@@ -1011,7 +1055,8 @@ def safety_lines(label, specs, safe, cc):
 
 
 def serial_scenario_phase(p, b, clocks, sel, to_reference, serial_ms, checks):
-    """Phase 13 (see the module docstring); returns the select launches."""
+    """Phase 13 (see the module docstring); returns the select launches and
+    the ms per batch step."""
     from librabft_simulator_tpu_torch.parallel import mesh as M
     from librabft_simulator_tpu_torch.serve import scenario as sc
     from librabft_simulator_tpu_torch.sim import byzantine as B
@@ -1079,7 +1124,7 @@ def serial_scenario_phase(p, b, clocks, sel, to_reference, serial_ms, checks):
     print("   profile, the same fleet going on, byz_flags (False, False):")
     profile_device(lambda x: S.step(p, dt, du, x, False, False), st, PROFILE_STEPS,
                    "batch step", warm=1)
-    return launches["select_queue_events"]
+    return launches["select_queue_events"], wall / steps * 1e3
 
 
 def lane_scenario_phase(p, b, clocks, sel, to_reference, window_ms, checks):
@@ -1235,7 +1280,7 @@ def lane_phase(name, p, b, sel, P, to_reference, profile, checks, stream=None, p
         raise AssertionError(f"{name}: no events")
     if p.telemetry:
         plane_checks(p, st, name)
-    if name == "config #5":
+    if name in ("config #3", "config #5"):
         require_paths(p, st, name)
 
     rng = np.random.default_rng(1)
@@ -1254,11 +1299,16 @@ def lane_phase(name, p, b, sel, P, to_reference, profile, checks, stream=None, p
 
 
 def require_paths(p, st, label):
-    """Config #5 drives the lane engine's 2-chain commit rule and its inbox
+    """Config #3 forms rounds past the first at n=64 (a vote quorum);
+    config #5 drives the lane engine's 2-chain commit rule and its inbox
     overflow, and with the watchdog on its stall and queue-saturation
     detectors: fail if the run left any of them at 0 (a horizon too short
     for them)."""
-    got = {"commits": int(st.ctx.commit_count.sum()), "inbox-full": int(st.n_inbox_full.sum())}
+    if label == "config #3":
+        got = {"rounds": int((st.store.current_round.max(dim=1).values - 1).sum())}
+    else:
+        got = {"commits": int(st.ctx.commit_count.sum()),
+               "inbox-full": int(st.n_inbox_full.sum())}
     if p.watchdog:
         from librabft_simulator_tpu_torch.telemetry import stream
         tot = dict(zip(stream.WD_SLOTS, st.wd.sum(dim=0).tolist()))
@@ -1571,6 +1621,238 @@ def sharded_phase(args, p10, p5, b, sel, to_reference, final_ref, rows10, path, 
     out["config #5 lanes sharded, device wrap"] = launches["select_queue_events"]
     return out
 
+
+
+def serve_fields(p, st, honest):
+    """The result fields phase 16 compares, per instance of a fleet state:
+    events, clock, commits, the committed round, messages sent and dropped,
+    safety under each instance's honest mask (the device check, held to its
+    reference) and the watchdog trips."""
+    from librabft_simulator_tpu_torch.sim import byzantine as B
+    from librabft_simulator_tpu_torch.telemetry import stream
+
+    safe = B.check_safety(st, honest)
+    if not np.array_equal(safe, B.check_safety_reference(st, honest)):
+        raise AssertionError("device safety check != reference")
+    wd = st.wd.cpu().numpy().astype(np.int64)
+    b = st.clock.shape[0]
+    return {"events": st.n_events.cpu().numpy().astype(np.int64),
+            "clock": st.clock.cpu().numpy().astype(np.int64),
+            "commits": st.ctx.commit_count.cpu().numpy().astype(np.int64),
+            "committed_round_max": st.store.hcr.reshape(b, -1).amax(dim=1).cpu().numpy()
+            .astype(np.int64),
+            "msgs_sent": st.n_msgs_sent.cpu().numpy().astype(np.int64),
+            "msgs_dropped": st.n_msgs_dropped.cpu().numpy().astype(np.int64),
+            "safe": safe.astype(bool),
+            "watchdog": wd[:, [stream.WD_SLOTS.index(n) for n in stream.WD_DETECTORS]]}
+
+
+def result_fields(results, ids):
+    """The same fields from the service's result dicts, in ``ids`` order."""
+    from librabft_simulator_tpu_torch.telemetry import stream
+
+    rs = [results[i] for i in ids]
+    out = {k: np.asarray([r[k] for r in rs], np.int64)
+           for k in ("events", "clock", "commits", "committed_round_max", "msgs_sent",
+                     "msgs_dropped")}
+    out["safe"] = np.asarray([r["safe"] for r in rs], bool)
+    out["watchdog"] = np.asarray([[r["watchdog"][n] for n in stream.WD_DETECTORS]
+                                  for r in rs], np.int64)
+    return out
+
+
+def cpu_serve_fields(p, specs):
+    """A CPU reference run (in the worker) of phase 16's picked requests, as
+    one static fleet: their result fields."""
+    from librabft_simulator_tpu_torch.serve import scenario as sc
+    from librabft_simulator_tpu_torch.sim import simulator as S
+
+    st = S.run_to_completion(p, sc.init_specs(p, specs, device="cpu"), chunk=32)
+    return serve_fields(p, st, sc.honest_masks(p, specs))
+
+
+def request_rows(paths):
+    """The ``kind="request"`` rows of the service's stream files."""
+    from librabft_simulator_tpu_torch.telemetry import stream
+
+    return [r for path in paths for r in stream.read_ndjson(path) if r.get("kind") == "request"]
+
+
+def span_line(lg, runs, kind):
+    durs = [sp.dur_s for sp in lg.spans if sp.kind == kind and sp.attrs.get("run") in runs]
+    mean = sum(durs) / len(durs) if durs else 0.0
+    return durs, f"{len(durs)} {kind} spans, {sum(durs):.3f} s in all, {mean:.4f} s each"
+
+
+def serve_phase(args, p, sel, serial_ms, ms13, checks, tmp):
+    """Phase 16 (see the module docstring); returns the select launches of
+    the serve path and of its static reference run."""
+    from librabft_simulator_tpu_torch.serve import FleetService, service
+    from librabft_simulator_tpu_torch.serve import scenario as sc
+    from librabft_simulator_tpu_torch.sim import simulator as S
+    from librabft_simulator_tpu_torch.telemetry import ledger
+
+    lg = ledger.get()
+    clocks = {2: tuple(args.serve_clock), 3: tuple(args.serve_clock3)}
+    t0 = time.perf_counter()
+    specs = fleet_specs(p, SERVE_REQUESTS, clocks, f_max=1, statics=True)
+    path = os.path.join(tmp, "requests.ndjson")
+    with open(path, "w") as f:
+        for i, spec in enumerate(specs):
+            f.write(json.dumps(dict(spec.to_dict(), id=f"q{i}")) + "\n")
+            f.flush()
+    print(f"   {SERVE_REQUESTS} requests from phase 13's generator for {SERVE_SLOTS} slots "
+          f"(n={p.n_nodes} queue_cap={p.queue_cap} adv_windows={p.adv_windows} "
+          f"watchdog={p.watchdog} telemetry={p.telemetry}), chunk {SERVE_CHUNK}; cut: "
+          f"per-request max_clock in {clock_ranges(clocks)} (BASELINE 1000); specs and "
+          f"NDJSON ({os.path.getsize(path) / 1e6:.1f} MB) {time.perf_counter() - t0:.3f} s")
+    streams = [os.path.join(tmp, f"serve{i}.ndjson") for i in (1, 2)]
+    ckpt = os.path.join(tmp, "serve.npz")
+    reads = {}
+    real_read = service._host_read
+
+    def counted(kind, fn, *a):
+        reads[kind] = reads.get(kind, 0) + 1
+        return real_read(kind, fn, *a)
+
+    legs = {}
+
+    def run():
+        t = time.perf_counter()
+        svc = FleetService(p, slots=SERVE_SLOTS, chunk=SERVE_CHUNK, device="cuda",
+                           out=streams[0])
+        ids = svc.submit_file(path)
+        legs["submit_s"] = time.perf_counter() - t
+        fleet = svc.fleet
+        t = time.perf_counter()
+        # Until a wave has landed in freed slots, and every admitted request
+        # has run a polled chunk (its first_chunk row precedes the preemption).
+        svc.serve(max_chunks=3)
+        while (len(span_line(lg, [fleet._rid], ledger.ADMIT)[0]) < 2 or fleet.pending_count
+               or any(r.first_chunk_t is None for r in fleet._active.values())):
+            if fleet.chunks_polled >= SERVE_MAX_CHUNKS:
+                raise AssertionError(f"phase 16: no admission wave in {SERVE_MAX_CHUNKS} chunks")
+            svc.serve(max_chunks=1)
+        torch.cuda.synchronize()
+        legs["serve1_s"] = time.perf_counter() - t
+        legs["active"] = sorted(int(r.request_id[1:]) for r in fleet._active.values())
+        t = time.perf_counter()
+        svc.preempt(ckpt)
+        svc.close()
+        legs["preempt_s"] = time.perf_counter() - t
+        legs["reads1"] = dict(reads)   # the preemption's read of the fleet included
+        t = time.perf_counter()
+        ring_p = dataclasses.replace(p, wrap="device", ring_k=SERVE_RING_K)
+        svc2 = FleetService.resume(ckpt, ring_p, device="cuda", out=streams[1])
+        legs["resume_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        results = svc2.drain()
+        torch.cuda.synchronize()
+        legs["drain_s"] = time.perf_counter() - t
+        svc2.close()
+        legs.update(fleets=(fleet, svc2.fleet), ids=ids)
+        return results
+
+    torch.cuda.reset_peak_memory_stats()
+    service._host_read = counted
+    try:
+        results, wall, launches = counted_run(sel, run, pause=True)
+    finally:
+        service._host_read = real_read
+    peak = torch.cuda.max_memory_allocated()
+    f1, f2 = legs["fleets"]
+    ids = legs["ids"]
+    steps = f1.steps_dispatched + f2.steps_dispatched
+    serve_s = legs["serve1_s"] + legs["drain_s"]
+    chunks1, chunks2 = f1.chunks_polled, f2.chunks_polled - f1.chunks_polled
+    waves, wave_line = span_line(lg, [f1._rid, f2._rid], ledger.ADMIT)
+    egress, egress_line = span_line(lg, [f1._rid, f2._rid], ledger.EGRESS)
+    rows = request_rows(streams)
+    ttfc = np.asarray([r["ttfc_s"] for r in rows if r["event"] == "first_chunk"])
+    print(f"   pumps: host wrap {chunks1} chunks ({legs['serve1_s']:.3f} s), preempted with "
+          f"{len(legs['active'])} active and {len(f1.results)} egressed, checkpoint "
+          f"{legs['preempt_s']:.3f} s ({os.path.getsize(ckpt) / 1e6:.1f} MB), resumed in "
+          f"{legs['resume_s']:.3f} s, ring (ring_k {SERVE_RING_K}) {chunks2} chunks "
+          f"({legs['drain_s']:.3f} s); submit_file {legs['submit_s']:.3f} s")
+    print(f"   {steps} event steps on 1 shard in {serve_s:.3f} s of pumping: "
+          f"{serve_s / steps * 1e3:.3f} ms per event step, phase 13's {ms13:.3f}, phase 4's "
+          f"{serial_ms:.3f}; launches {launches} (event steps {steps} x 1 shard)")
+    print(f"   admission: {wave_line} (requests per wave "
+          f"{[sp.attrs['requests'] for sp in lg.spans if sp.kind == ledger.ADMIT and sp.attrs.get('run') in (f1._rid, f2._rid)]}); "
+          f"egress: {egress_line}")
+    print(f"   {SERVE_REQUESTS} requests in {wall:.3f} s (submit to drained, the preemption "
+          f"included): {SERVE_REQUESTS / wall:.1f} requests/s; ttfc p50 "
+          f"{np.percentile(ttfc, 50):.6f} s, p99 {np.percentile(ttfc, 99):.6f} s over "
+          f"{len(ttfc)} first chunks; peak memory {peak / 1e9:.3f} GB")
+    if launches["select_events"] or launches["select_queue_events"] != steps:
+        raise AssertionError(f"phase 16: launches {launches}, event steps {steps} x 1 shard")
+    # Every id egressed once, with its whole lifecycle on the stream.
+    if sorted(results) != sorted(ids) or len(ids) != SERVE_REQUESTS:
+        raise AssertionError(f"phase 16: {len(results)} results for {len(ids)} requests")
+    seen = {}
+    for r in rows:
+        seen.setdefault(r["id"], []).append(r["event"])
+    want_events = ["submitted", "admitted", "first_chunk", "egressed"]
+    bad = [i for i in ids if sorted(seen.get(i, []), key=want_events.index) != want_events]
+    if bad:
+        raise AssertionError(f"phase 16: {len(bad)} ids lack a lifecycle row, first "
+                             f"{bad[:3]}: {[seen.get(i) for i in bad[:3]]}")
+    print(f"   every id egressed once; the streams hold {len(rows)} request rows: "
+          f"{', '.join(want_events)} for each of the {len(ids)} ids")
+    # The host's reads of device data, through the service's one seam.
+    r1 = legs["reads1"]
+    r2 = {k: v - r1.get(k, 0) for k, v in reads.items()}
+    egress1 = len(span_line(lg, [f1._rid], ledger.EGRESS)[0])
+    print(f"   host reads, host wrap and preemption: {json.dumps(r1)} over {chunks1} polled "
+          f"chunks and {egress1} egress boundaries; ring: {json.dumps(r2)} over {chunks2} "
+          "retired chunks")
+    if (r1.get("digest") != chunks1 or r1.get("ring") or r1.get("halted", 0) > egress1
+            or r1.get("rows") != r1.get("halted") or r1.get("state") != 1):
+        raise AssertionError(f"phase 16 host wrap: reads {r1}, chunks {chunks1}, "
+                             f"egress boundaries {egress1}")
+    ring = lg.ring_stats(run=f2._rid)
+    if r2.get("digest") or r2.get("state") or not ring or r2.get("ring") != ring["dispatches"]:
+        raise AssertionError(f"phase 16 ring: reads {r2}, ring_stats {ring}")
+    ring_checks(ring, lg, "phase 16 ring leg")
+
+    # One static fleet run of every spec, the reference of every result.
+    honest = sc.honest_masks(p, specs)
+    st, wall_s, launches_s = counted_run(sel, lambda: S.run_to_completion(
+        p, sc.init_specs(p, specs, device="cuda"), chunk=64, max_chunks=1600, batched=True))
+    steps_s = S.run_to_completion.last_steps
+    print(f"   static reference: init_specs + run_to_completion of all {SERVE_REQUESTS} specs, "
+          f"{steps_s} batch steps in {wall_s:.3f} s ({wall_s / steps_s * 1e3:.3f} ms per "
+          f"step), launches {launches_s}")
+    if (not bool(st.halted.all()) or launches_s["select_events"]
+            or launches_s["select_queue_events"] != steps_s):
+        raise AssertionError(f"phase 16 static run: launches {launches_s}, steps {steps_s}")
+    want = serve_fields(p, st, honest)
+    del st
+    got = result_fields(results, ids)
+    for k in want:
+        if not np.array_equal(got[k], want[k]):
+            bad = np.flatnonzero((got[k] != want[k]).reshape(len(ids), -1).any(axis=1))
+            raise AssertionError(f"phase 16: {k} of {len(bad)} results != the static run, "
+                                 f"first {bad[:5].tolist()}")
+    print(f"   all {len(ids)} results equal their rows of the static run: "
+          f"{', '.join(want)}")
+    safety_lines("phase 16", specs, want["safe"], want["commits"])
+    # Picked requests against a CPU run.
+    chains = np.asarray([s.commit_chain for s in specs])
+    total = want["commits"].sum(axis=1)
+    ev = want["events"]
+    attacked = [i for i, s in enumerate(specs) if s.attack["windows"]]
+    picks = {f"committed {c}-chain": int(np.argmax(np.where(chains == c, total, -1)))
+             for c in (3, 2)}
+    picks["attacked"] = max(attacked, key=lambda i: ev[i])
+    picks["second wave"] = SERVE_SLOTS + int(np.argmax(ev[SERVE_SLOTS:]))
+    picks["active at the preemption"] = max(legs["active"], key=lambda i: ev[i])
+    order = sorted(set(picks.values()))
+    checks.submit("phase 16 served results vs CPU", result_fields(results, [ids[i] for i in order]),
+                  f"requests {order} ({', '.join(f'{k} {v}' for k, v in picks.items())}), "
+                  f"events {ev[order].tolist()}", cpu_serve_fields, p, [specs[i] for i in order])
+    return {"serve": launches["select_queue_events"],
+            "serve's static reference": launches_s["select_queue_events"]}
 
 if __name__ == "__main__":
     sys.exit(main())

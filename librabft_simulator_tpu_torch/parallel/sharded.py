@@ -130,21 +130,33 @@ class _Runner:
     the fleet while a loop runs (``parts``: one state per shard, for
     ``wrap="jit"`` one state on the first device), so that each state has
     one owner and is freed as soon as its next chunk replaces it, as JAX
-    donates a chunk's buffers.  ``dispatched`` counts the chunks run."""
+    donates a chunk's buffers.  ``dispatched`` counts the chunks run.
+    ``flags`` are the Byzantine skip flags of the chunks (None: read from
+    the shards when the first chunk runs); :meth:`set_flags` changes them
+    between chunks."""
 
     def __init__(self, p, mesh: Mesh, num_steps: int, eng, wrap: str):
         self.p, self.mesh, self.num_steps, self.eng, self.wrap = p, mesh, num_steps, eng, wrap
         self.axes = AXES if wrap == "shard_map" else ()
         self.dispatched = 0
         self.parts = None
+        self.flags = None
         self._scans = None
+
+    def set_flags(self, flags) -> None:
+        """Run the next chunks with the skip flags ``flags`` ((any_equivocate,
+        any_forge)); the chunk runners are rebuilt only if they change."""
+        flags = tuple(bool(f) for f in flags)
+        if flags != self.flags:
+            self.flags, self._scans = flags, None
 
     def chunk(self) -> torch.Tensor:
         """One chunk of every shard; returns the fleet's [13] digest on the
         first shard's device."""
         parts = self.parts
         if self._scans is None:
-            self._scans = [self.eng.make_scan_fn(self.p, self.num_steps, s) for s in parts]
+            self._scans = [self.eng.make_scan_fn(self.p, self.num_steps, s, flags=self.flags)
+                           for s in parts]
         with config.bound_axes(self.axes):
             for j, run in enumerate(self._scans):
                 parts[j] = run(parts[j])

@@ -13,19 +13,21 @@ trajectory equals a dedicated static run of its scenario
 ``sc_*``.
 
 Installing a scenario into a slot of a fleet is a masked write
-(:func:`install_rows`).
+(:func:`install_rows`), or with the admitted rows alone an indexed one
+(:func:`install_at`, the resident service's admission).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from ..adversary import dsl as adsl
 from ..adversary import plane as aplane
-from ..core.types import SimParams, Tree, tree_fields, tree_map
+from ..core.types import DELAY_KEY_DEFAULTS, SimParams, Tree, tree_fields, tree_map
 from ..sim import byzantine
 from ..sim import parallel_sim as lane_ops
 from ..sim import simulator as sim_ops
@@ -69,6 +71,14 @@ _SPEC_PARAM_FIELDS = ("delay_kind", "delay_mean", "delay_variance",
 
 def _i32(v) -> torch.Tensor:
     return torch.tensor(H.to_i32(int(v)), dtype=I32)
+
+
+@functools.lru_cache(maxsize=256)
+def _delay_table(*delay_fields) -> np.ndarray:
+    """The delay table of ``DELAY_KEY_DEFAULTS``' fields (in that order),
+    built once per family and parameters: a serve admission wave builds a
+    row for every request, and a table costs ~0.4 ms of host time."""
+    return SimParams(**dict(zip(DELAY_KEY_DEFAULTS, delay_fields))).delay_table()
 
 
 def _rows(table, drop_u32, max_clock, commit_chain, seed,
@@ -115,10 +125,12 @@ class ScenarioSpec:
         if self.commit_chain not in (2, 3):
             raise ValueError(
                 f"commit_chain must be 2 or 3, got {self.commit_chain}")
-        if self.attack is not None:
-            # The grammar is checked here; capacities and node ids when the
-            # program is lowered against the base params.
-            adsl.AttackProgram.from_dict(self.attack)
+        # The grammar is checked here; capacities and node ids when the
+        # program is lowered against the base params.  The parsed program is
+        # kept (not a field): a served request reads it at submission,
+        # admission and egress.
+        prog = adsl.AttackProgram.from_dict(self.attack) if self.attack is not None else None
+        object.__setattr__(self, "_program", prog)
 
     @classmethod
     def from_dict(cls, d: dict) -> "ScenarioSpec":
@@ -151,8 +163,7 @@ class ScenarioSpec:
 
     def attack_program(self) -> "adsl.AttackProgram | None":
         """The parsed attack program (None: no attack)."""
-        return (adsl.AttackProgram.from_dict(self.attack)
-                if self.attack is not None else None)
+        return self._program
 
     def adv_rows(self, base: SimParams) -> dict:
         """This scenario's lowered adversary rows (inert without an attack;
@@ -181,10 +192,35 @@ class ScenarioSpec:
 
     def plane_row(self, base: SimParams) -> ScenarioPlane:
         """This scenario as one (unbatched) row."""
-        ded = self.to_params(base)
-        return _rows(ded.delay_table(), ded.drop_u32, ded.max_clock,
-                     ded.commit_chain, self.seed, self.byz_masks(base),
-                     self.adv_rows(base))
+        return tree_map(lambda x: x[0], plane_rows(base, [self]))
+
+
+def plane_rows(base: SimParams, specs) -> ScenarioPlane:
+    """The ``[B]`` plane of ``specs``, row i ``specs[i].plane_row(base)``,
+    built column by column in numpy (one tensor per leaf)."""
+    specs = list(specs)
+    if not specs:
+        raise ValueError("plane_rows needs at least one scenario")
+    cols = {k: [] for k in ("seed", "delay_table", "drop_u32", "max_clock", "commit_chain",
+                            "byz_equivocate", "byz_silent", "byz_forge_qc")}
+    adv = []
+    for spec in specs:
+        ded = spec.to_params(base)
+        cols["seed"].append(H.to_i32(int(spec.seed) & 0xFFFFFFFF))
+        cols["delay_table"].append(_delay_table(*(getattr(ded, f) for f in DELAY_KEY_DEFAULTS)))
+        for k, v in (("drop_u32", ded.drop_u32), ("max_clock", ded.max_clock),
+                     ("commit_chain", ded.commit_chain)):
+            cols[k].append(H.to_i32(int(v)))
+        for k, m in zip(("byz_equivocate", "byz_silent", "byz_forge_qc"), spec.byz_masks(base)):
+            cols[k].append(np.asarray(m, bool))
+        adv.append(spec.adv_rows(base))
+    out = {k: torch.as_tensor(np.asarray(v, np.int32)) for k, v in cols.items()
+           if k in ("seed", "drop_u32", "max_clock", "commit_chain")}
+    out["delay_table"] = torch.as_tensor(np.stack(cols["delay_table"]).astype(np.int32))
+    out.update({k: torch.as_tensor(np.stack(cols[k]))
+                for k in ("byz_equivocate", "byz_silent", "byz_forge_qc")})
+    out.update({k: torch.as_tensor(np.stack([a[k] for a in adv])) for k in adv[0]})
+    return ScenarioPlane(**out)
 
 
 def default_row(p: SimParams, seed: int = 0) -> ScenarioPlane:
@@ -254,8 +290,7 @@ def init_specs(p: SimParams, specs, seeds=None, engine=None, device="cuda"):
     specs = list(specs)
     if seeds is not None:
         specs = [dataclasses.replace(s, seed=int(sd)) for s, sd in zip(specs, seeds)]
-    return init_rows(p, stack_rows(s.plane_row(p) for s in specs),
-                     engine=engine, device=device)
+    return init_rows(p, plane_rows(p, specs), engine=engine, device=device)
 
 
 def install_rows(st, mask, donor):
@@ -286,3 +321,29 @@ def install_rows(st, mask, donor):
         return type(tree)(**kw)
 
     return put(st, donor)
+
+
+def install_at(st, idx, rows):
+    """Replace the slots ``idx`` of a fleet state with the rows of ``rows``,
+    a state of ``len(idx)`` instances on the fleet's device (e.g. from
+    :func:`init_rows`): what :func:`install_rows` does with a fleet-shaped
+    donor holding these rows at ``idx``, without building that donor.  A
+    lane state's inbox leaves are written in place into their routing
+    buffers; every other leaf gets a new tensor."""
+    inbox = set(lane_ops.INBOX) if isinstance(st, lane_ops.PSimState) else set()
+    at = torch.as_tensor(np.asarray(idx, np.int64), device=st.clock.device)
+
+    def put(tree, new_tree):
+        kw = {}
+        for name in tree_fields(tree):
+            old, new = getattr(tree, name), getattr(new_tree, name)
+            if isinstance(old, Tree):
+                kw[name] = put(old, new)
+            elif name in inbox:
+                old.index_copy_(0, at, new)
+                kw[name] = old
+            else:
+                kw[name] = old.index_copy(0, at, new)
+        return type(tree)(**kw)
+
+    return put(st, rows)

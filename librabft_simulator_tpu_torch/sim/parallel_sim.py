@@ -740,10 +740,12 @@ def _window_planes(p: SimParams, st, m, flight, wd, live, t_ev, hz, qualify, A, 
     return out
 
 
-def make_scan_fn(p: SimParams, num_steps: int, st: PSimState, d_min: int | None = None):
+def make_scan_fn(p: SimParams, num_steps: int, st: PSimState, d_min: int | None = None,
+                 flags=None):
     """The chunk runner, ``st -> st``: ``num_steps`` windows per instance,
-    with the tables on the device of ``st`` and the Byzantine skip flags read
-    from ``st`` (``simulator.make_scan_fn``'s twin).  ``d_min`` overrides
+    with the tables on the device of ``st`` and the Byzantine skip flags
+    ``flags`` (default: read from ``st``; ``simulator.make_scan_fn``'s
+    twin).  ``d_min`` overrides
     the lookahead (1 <= d_min <= d_min_of(p)); absent inbox overflow the
     trajectory does not depend on it, nor on ``active_lanes`` /
     ``drain_k``."""
@@ -752,7 +754,7 @@ def make_scan_fn(p: SimParams, num_steps: int, st: PSimState, d_min: int | None 
     if not 1 <= dmin <= d_min_of(p):
         raise ValueError(f"d_min={dmin} must lie in [1, {d_min_of(p)}]")
     delay_table, dur_table = S.tables(p, st.clock.device)
-    flags = S.byz_flags(p, st)
+    flags = S.byz_flags(p, st) if flags is None else tuple(flags)
 
     def run(s):
         for _ in range(num_steps):

@@ -625,19 +625,27 @@ def _telemetry_step(p: SimParams, st: SimState, a, kind, clock, live, is_timer,
     return m, flight
 
 
-def byz_flags(p: SimParams, st):
-    """(any_equivocate, any_forge): whether some instance of a SimState or
-    PSimState can equivocate or forge a QC during a run, by a static mask
-    or by a window of its attack schedule (a window row with ``hi > lo``
-    and that behavior).  Both are constant over a run: one host read."""
-    eq, forge = st.byz_equivocate.any(), st.byz_forge_qc.any()
+def byz_rows(p: SimParams, st) -> torch.Tensor:
+    """``[B, 2]`` bool: per instance of a SimState, a PSimState or a
+    ``serve.scenario.ScenarioPlane``, whether it can equivocate (column 0)
+    or forge a QC (column 1) during a run, by a static mask or by a window
+    of its attack schedule (a window row with ``hi > lo`` and that
+    behavior).  No host read."""
+    eq, forge = st.byz_equivocate.any(dim=-1), st.byz_forge_qc.any(dim=-1)
     if p.adversary:
         sched = st.adv_sched
         live = sched[..., aplane.F_HI] > sched[..., aplane.F_LO]
         beh = sched[..., aplane.F_BEH]
-        eq = eq | (live & (beh == aplane.BEH_EQUIVOCATE)).any()
-        forge = forge | (live & (beh == aplane.BEH_FORGE_QC)).any()
-    eq, forge = torch.stack([eq, forge]).tolist()
+        eq = eq | (live & (beh == aplane.BEH_EQUIVOCATE)).any(dim=-1)
+        forge = forge | (live & (beh == aplane.BEH_FORGE_QC)).any(dim=-1)
+    return torch.stack([eq, forge], dim=-1)
+
+
+def byz_flags(p: SimParams, st):
+    """(any_equivocate, any_forge): whether some instance can equivocate or
+    forge a QC during a run (:func:`byz_rows`).  Both are constant over a
+    run: one host read."""
+    eq, forge = byz_rows(p, st).any(dim=0).tolist()
     return eq, forge
 
 
@@ -672,15 +680,16 @@ def macro_step(p: SimParams, delay_table, dur_table, st: SimState,
     return st
 
 
-def make_scan_fn(p: SimParams, num_steps: int, st: SimState):
+def make_scan_fn(p: SimParams, num_steps: int, st: SimState, flags=None):
     """The chunk runner, ``st -> st``: ``num_steps`` macro-steps
     (``num_steps * macro_k`` events) per instance, with the tables on the
-    device of ``st`` and the Byzantine skip flags read from ``st`` (one host
-    read, here; constant over a run).  ``run_to_completion``, its stream
-    loop and the sharded runtime all run chunks through it."""
+    device of ``st`` and the Byzantine skip flags ``flags`` (default: read
+    from ``st``, one host read, here; constant over a run).
+    ``run_to_completion``, its stream loop, the sharded runtime and the
+    resident service all run chunks through it."""
     p = resolve_params(p)
     delay_table, dur_table = tables(p, st.clock.device)
-    flags = byz_flags(p, st)
+    flags = byz_flags(p, st) if flags is None else tuple(flags)
 
     def run(s):
         for _ in range(num_steps):

@@ -123,10 +123,12 @@ def test_decode_against_jax(n):
     link = rng.integers(-4, jplane.DELAY_CAP + 4, (rows, n, n)).astype(np.int32)
     link[:4] = rng.integers(0, 3, (4, n, n))
 
-    want_act = np.asarray(jax.vmap(jplane.active_windows)(sched, t, ev, ep))
-    want_masks = [np.asarray(m) for m in jax.vmap(jplane.node_masks)(sched, want_act, node)]
-    want_extra = np.asarray(jax.vmap(jplane.delay_extra)(sched, want_act, recvs, leader))
-    want_look = np.asarray(jax.vmap(lambda lk: jplane.link_lookahead(lk, n))(link))
+    # Each JAX decode as one jitted call (op by op, ~45 small XLA compiles).
+    want_act = np.asarray(jax.jit(jax.vmap(jplane.active_windows))(sched, t, ev, ep))
+    want_masks = [np.asarray(m)
+                  for m in jax.jit(jax.vmap(jplane.node_masks))(sched, want_act, node)]
+    want_extra = np.asarray(jax.jit(jax.vmap(jplane.delay_extra))(sched, want_act, recvs, leader))
+    want_look = np.asarray(jax.jit(jax.vmap(lambda lk: jplane.link_lookahead(lk, n)))(link))
 
     T = torch.as_tensor
     act = aplane.active_windows(T(sched), T(t), T(ev), T(ep))

@@ -112,8 +112,10 @@ def test_update_pacemaker_matches_jax(lam):
                                     s_.epoch_id, lqa_, clock_,
                                     jnp.asarray(jp.duration_table()))
 
-    jpm2, jact = jax.vmap(jax_one)(_to_jax(s, JT.Store), _to_jax(pm, JT.Pacemaker),
-                                   jnp.asarray(lqa.numpy()), jnp.asarray(clock.numpy()))
+    # One jitted call (op by op, ~45 small XLA compiles).
+    jpm2, jact = jax.jit(jax.vmap(jax_one))(
+        _to_jax(s, JT.Store), _to_jax(pm, JT.Pacemaker),
+        jnp.asarray(lqa.numpy()), jnp.asarray(clock.numpy()))
     for name in TT.tree_fields(pm2):
         np.testing.assert_array_equal(getattr(pm2, name).numpy(),
                                       np.asarray(getattr(jpm2, name)), err_msg=name)

@@ -251,3 +251,60 @@ def test_cuda_sharded_ring_matches_cpu(cuda_device, lanes):
             assert ring["polls_per_retired_chunk"] < 1
             assert ring["waits_per_retired_chunk"] < 1
     assert int(want["n_events"].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [False, True])
+def test_cuda_serve_matches_cpu(cuda_device, lanes, tmp_path):
+    """The resident fleet service on the card: 6 requests (an attacked one,
+    both chains, a static schedule) on 4 slots, served by the pipelined
+    digest pump for 2 chunks, preempted, resumed under the device-wrap ring
+    (ring_k 4) and drained, give the CPU's host-wrap results field for
+    field (all but the wall-clock ttfc_s); the select launches are the event
+    steps (windows x drain) the two pumps dispatched."""
+    import dataclasses
+
+    from fleet_shapes import FLEET_ADV_SERVE_KW
+    from librabft_simulator_tpu_torch.core.types import SimParams
+    from librabft_simulator_tpu_torch.serve import FleetService, ScenarioSpec
+    from librabft_simulator_tpu_torch.sim import parallel_sim as P
+
+    p = SimParams(**dict(FLEET_ADV_SERVE_KW, max_clock=120))
+    eng = P if lanes else None
+    specs = [ScenarioSpec(delay_kind="uniform", max_clock=120, seed=11),
+             ScenarioSpec(delay_kind="uniform", commit_chain=2, max_clock=90, seed=22,
+                          attack={"windows": [{"behavior": "equivocate", "start": 10,
+                                               "end": 60, "targets": [3]}]}),
+             ScenarioSpec(delay_kind="uniform", max_clock=30, seed=33),
+             ScenarioSpec(delay_kind="constant", delay_mean=7.0, max_clock=70,
+                          byz_kind="silent", byz_f=1, seed=44),
+             ScenarioSpec(delay_kind="uniform", commit_chain=2, max_clock=80, seed=55),
+             ScenarioSpec(delay_kind="uniform", max_clock=60, seed=66,
+                          attack={"windows": [{"behavior": "forge_qc", "start": 0,
+                                               "end": 40, "targets": [0]}]})]
+    chunk = 8 if lanes else 32
+    with FleetService(p, slots=4, chunk=chunk, engine=eng, device="cpu") as cpu:
+        for s in specs:
+            cpu.submit(s)
+        want = cpu.drain()
+    before = sel.select_queue_events.launches
+    svc = FleetService(p, slots=4, chunk=chunk, engine=eng, device=cuda_device)
+    for s in specs:
+        svc.submit(s)
+    svc.serve(max_chunks=2)
+    steps = svc.fleet.steps_dispatched
+    path = str(tmp_path / "svc.npz")
+    svc.preempt(path)
+    svc.close()
+    ring_p = dataclasses.replace(p, wrap="device", ring_k=4)
+    with FleetService.resume(path, ring_p, engine=eng, device=cuda_device) as svc:
+        got = svc.drain()
+        steps += svc.fleet.steps_dispatched
+    torch.cuda.synchronize()
+    per_step = P.drain_of(p) if lanes else 1
+    assert sel.select_queue_events.launches - before == steps * per_step
+    assert set(got) == set(want)
+    for rid in want:
+        assert {k: v for k, v in got[rid].items() if k != "ttfc_s"} == \
+            {k: v for k, v in want[rid].items() if k != "ttfc_s"}, rid
+    assert max(max(r["commits"]) for r in want.values()) > 0

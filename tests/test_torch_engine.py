@@ -45,11 +45,12 @@ def jax_final_leaves(jp, seed):
     """JAX ``run_to_completion`` of one instance as ``{path: [1, ...] array}``.
     The engine's trace and executable hold about 2 GB that no later port test
     needs, so they are built into a released heap and released again before
-    the port runs."""
+    the port runs.  ``init_state`` runs as one jitted call: op by op it is
+    ~50 small XLA compiles, rebuilt after every release."""
     release_jax_memory()
     want = {}
     for path, leaf in jax.tree_util.tree_leaves_with_path(
-            JS.run_to_completion(jp, JS.init_state(jp, seed))):
+            JS.run_to_completion(jp, jax.jit(JS.init_state, static_argnums=0)(jp, seed))):
         want[jax.tree_util.keystr(path).lstrip(".")] = np.asarray(leaf)[None]
     release_jax_memory()
     return want

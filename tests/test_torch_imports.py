@@ -24,6 +24,9 @@ def _imported(tree):
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = _port_files()
     assert len(files) > 10
+    names = {str(p.relative_to(ROOT)) for p in files}
+    for mod in ("serve/service.py", "serve/api.py", "serve/cli.py", "distributed/egress.py"):
+        assert f"librabft_simulator_tpu_torch/{mod}" in names, mod
     bad = []
     for path in files:
         for mod in _imported(ast.parse(path.read_text(), str(path))):

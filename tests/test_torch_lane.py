@@ -65,18 +65,19 @@ def _import_port():
 def jax_lane_runs():
     """The JAX lane engine's final leaves for every case.  Only runtime data
     differs between the cases, so they share one executable; it is built
-    into a released heap and released again before the port runs."""
+    into a released heap and released again before the port runs.  Each
+    initial state is one jitted call (op by op, ~35 small XLA compiles)."""
     release_jax_memory()
     out = {}
     for name, (kw, masks) in CASES.items():
         p = JParams(**_small_kw(**kw))
         if masks:
-            st = jax.vmap(lambda s, eq, sil, fq: JP.init_state(
-                p, s, byz_equivocate=eq, byz_silent=sil, byz_forge_qc=fq))(
+            st = jax.jit(jax.vmap(lambda s, eq, sil, fq: JP.init_state(
+                p, s, byz_equivocate=eq, byz_silent=sil, byz_forge_qc=fq)))(
                 SEEDS, masks["byz_equivocate"], masks["byz_silent"],
                 masks["byz_forge_qc"])
         else:
-            st = JP.init_batch(p, SEEDS)
+            st = jax.jit(JP.init_batch, static_argnums=0)(p, SEEDS)
         st = dedupe_buffers(st)
         run = JP.make_run_fn(p, 256)
         for _ in range(120):

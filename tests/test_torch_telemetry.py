@@ -279,7 +279,9 @@ def test_checkpoints_cross_load_and_resume(port_ser, tmp_path):
     to the fleet run's instance 0 in every leaf.  The port's checkpoint of
     that state loads into JAX's checkpoint.load."""
     p, jp = port_ser["p"], P_WD_SER
-    jst = jax.tree_util.tree_map(np.asarray, JS.init_state(jp, int(SEEDS[0])))
+    # One jitted call (op by op, init_state is ~50 small XLA compiles).
+    jst = jax.tree_util.tree_map(
+        np.asarray, jax.jit(JS.init_state, static_argnums=0)(jp, int(SEEDS[0])))
     like = jax.tree_util.tree_map(lambda x: x[None], jst)   # init_batch of one seed
     want = leaves(like)
     for i, state in enumerate((jst, like)):   # unbatched and batched checkpoints

@@ -87,10 +87,19 @@ def test_pack_unpack_payload_matches_jax():
     np.testing.assert_array_equal(TT.pack_payload(tpay).numpy(), packed)
 
 
-def test_init_batch_matches_jax_at_config2():
-    seeds = np.asarray([0, 7, 2**32 - 1], np.uint32)
-    want = jax_leaves(JS.init_batch(JT.SimParams(**CONFIG2), seeds))
-    st = TS.init_batch(TT.SimParams(**CONFIG2), seeds, device="cpu")
+SEEDS = np.asarray([0, 7, 2**32 - 1], np.uint32)
+
+
+@pytest.fixture(scope="module")
+def jax_config2():
+    """JAX ``init_batch`` of SEEDS at config #2, built once for the tests
+    below, as one jitted call (op by op it is ~65 small XLA compiles)."""
+    return jax_leaves(jax.jit(JS.init_batch, static_argnums=0)(JT.SimParams(**CONFIG2), SEEDS))
+
+
+def test_init_batch_matches_jax_at_config2(jax_config2):
+    want = jax_config2
+    st = TS.init_batch(TT.SimParams(**CONFIG2), SEEDS, device="cpu")
     got = convert.to_reference(st)
     assert_leaves_equal(want, got)
     assert len(got) == 114
@@ -100,10 +109,8 @@ def test_init_batch_matches_jax_at_config2():
             assert leaf.dtype == torch.int32, path
 
 
-def test_convert_round_trip():
-    seeds = np.asarray([3, 4], np.uint32)
-    jst = JS.init_batch(JT.SimParams(**CONFIG2), seeds)
-    leaves = jax_leaves(jst)
+def test_convert_round_trip(jax_config2):
+    leaves = jax_config2
     st = convert.from_reference(leaves, device="cpu")
     assert_leaves_equal(leaves, convert.to_reference(st))
     # uint32 leaves given as int32 bit patterns are read the same way.
